@@ -31,9 +31,12 @@ Phases (any failure raises and the script exits nonzero):
 6. the hand-written CUDA shear-warp kernel against its plain PyTorch
    version at the train shape (32, 640, 640, 3) uint8 -> 256x192, on
    matrices from the port's own augmentation draws, plus fixed rotations
-   0/+-30/+-90/179, a flip and the transposed frame, a float32 source and
-   an odd size: max |diff| <= 1e-3 on the 0-255 scale, bit-equality
-   printed;
+   0/+-30/+-90/179, a flip and the transposed frame, a float32 source, an
+   odd size, and the five hard matrices of
+   ``tests/_torch_port_common.py::HARD_WARPS`` (4x zoom-out at 45 degrees,
+   0.05x zoom-in, a crop off a corner, a crop wholly outside the source,
+   -135 degrees flipped) on uint8 and float32 sources: every case
+   bit-equal, and max |diff| <= 1e-3 on the 0-255 scale;
 7. a small-input reference for training: one tiny fp32 train step (SGD)
    on the card and on the CPU, same weights and draws: loss rtol 1e-4,
    each gradient tensor within 5e-2 of its max (3e-3 on average), updated
@@ -165,7 +168,7 @@ def _kernel_class(name):
     n = name.lower()
     if "dark_decode" in n:
         return "dark_decode"
-    if "shear_pass" in n:
+    if "shear_warp" in n:
         return "shear_warp"
     if "multi_tensor" in n:
         return "optimizer"
@@ -362,6 +365,8 @@ def main():
     from rsgnet_tpu_torch.ops.shear_warp import (shear_prepare,
                                                  shear_warp_reference)
     from rsgnet_tpu_torch.ops.warp import invert_affine
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_port_common import HARD_WARPS, hard_warp_matrix
 
     # -- 1. the card ------------------------------------------------------
     card = card_line()
@@ -582,8 +587,10 @@ def main():
         build.library_path("shear_warp").stem[3:] + ".ptxas.txt")
     if ptxas.exists():
         for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas: {line.strip()}")
+            if "entry function" in line:        # the kernel named below
+                log(f"ptxas: {line.split(chr(39))[1][:40]}...")
+            elif any(w in line for w in ("registers", "spill", "smem")):
+                log(f"ptxas:   {line.strip()}")
     wcfg = load_config(W32_YAML)
     out_size = tuple(wcfg.MODEL.IMAGE_SIZE)
     rng = np.random.RandomState(5)
@@ -602,20 +609,28 @@ def main():
     ocfg.MODEL.IMAGE_SIZE = (40, 56)
     odd_pos = shear_prepare(shear_matrices(torch, 1, 97, ocfg, 7).to(dev),
                             97, (40, 56))
+    cases = [("train shape, augmentation matrices", canvases, aug_pos, 255.0),
+             ("fixed rotations, flips, transposed frame", canvases[:8],
+              fixed_pos, 255.0),
+             ("float32 source of range 3", floats, fixed_pos, 3.0),
+             ("odd size 97 -> 40x56", odd, odd_pos, 255.0)]
+    for i, name in enumerate(sorted(HARD_WARPS)):
+        pos_i = shear_prepare(torch.from_numpy(
+            hard_warp_matrix(name, CANVAS, out_size)).to(dev), CANVAS,
+            out_size)
+        cases += [(f"hard matrix {name}", canvases[i:i + 1], pos_i, 255.0),
+                  (f"hard matrix {name}", floats[i:i + 1], pos_i, 3.0)]
     warp_err = 0.0
-    for label, images, pos, span in (
-            ("train shape, augmentation matrices", canvases, aug_pos, 255.0),
-            ("fixed rotations, flips, transposed frame", canvases[:8],
-             fixed_pos, 255.0),
-            ("float32 source of range 3", floats, fixed_pos, 3.0),
-            ("odd size 97 -> 40x56", odd, odd_pos, 255.0)):
+    for label, images, pos, span in cases:
         err, equal = shear_vs_plain(torch, shear_warp, images, pos)
         err255 = err * 255.0 / span
         log(f"shear_warp kernel vs plain, {label} {tuple(images.shape)} "
             f"{str(images.dtype)[6:]}: max |diff| {err:.3e} ({err255:.3e} "
             f"on 0-255), bit-equal {equal}")
-        if err255 > 1e-3:
-            raise AssertionError(f"shear warp kernel disagrees: {err255}")
+        if err255 > 1e-3 or not equal:
+            raise AssertionError(f"shear warp kernel disagrees with its plain "
+                                 f"version: {err255} on 0-255, bit-equal "
+                                 f"{equal}")
         if label.startswith("train shape"):
             warp_err = err
 
@@ -727,6 +742,10 @@ def main():
         f"{src_bytes / 1e6:.1f} MB of {canvases.numel() / 1e6:.1f} MB); "
         f"F.grid_sample (the gather warp, fp32 NCHW source; equals the "
         f"shear warp only at rot 0/+-90/flips) {gs_ms:.4f} ms")
+    log(f"[{card}] shear_warp kernel: {100 * warp_bound / warp_ms:.1f}% of "
+        f"its bound ({warp_ms / warp_bound:.2f}x the bound), "
+        f"{warp_ms / gs_ms:.3f}x the time of F.grid_sample "
+        f"({'faster' if warp_ms < gs_ms else 'slower'})")
     loader = [raw] * 6
     train_one_epoch(step_fn, state, loader[:2], seed=10)
     torch.cuda.synchronize()

@@ -3,9 +3,12 @@
 ``shear_warp(images, pos)`` takes (N, S, S, C) square sources (uint8 or
 float32, contiguous) and ``ops/shear_warp.py::shear_prepare``'s positions,
 and returns the (N, C, out_h, out_w) float32 warp. A CUDA tensor goes to
-the kernel, launched on PyTorch's current stream: the source is read in
-its own dtype (no float copy of a uint8 batch), and anything the kernel
-refuses raises. A CPU tensor goes to the plain version,
+the kernel, one launch on PyTorch's current stream that computes both
+passes with no intermediate in device memory: the source is read in its
+own dtype (no float copy of a uint8 batch), nothing but the output is
+allocated, and anything the kernel refuses raises (a sample of S * S * C
+or C * out_h * out_w elements beyond 31-bit offsets among it). A CPU
+tensor goes to the plain version,
 ``ops/shear_warp.py::shear_warp_reference``. There is no other route:
 nothing falls back.
 
@@ -30,8 +33,8 @@ def _library():
     lib.shear_warp_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     lib.shear_warp_launch.restype = ctypes.c_int
     return lib
 
@@ -68,11 +71,15 @@ def _check(images, pos):
                              f"{images.device}")
         if not t.is_contiguous():
             raise ValueError(f"pos.{name} must be contiguous")
+    if max(s * s * ch, ch * out_h * out_w) >= 2 ** 31:
+        raise ValueError(f"shear warp of {tuple(images.shape)} to "
+                         f"{out_h}x{out_w}: a sample does not fit the "
+                         f"kernel's 31-bit offsets")
     return n, s, ch, out_h, out_w
 
 
 def shear_warp(images: torch.Tensor, pos: ShearPositions) -> torch.Tensor:
-    """Two-pass shear warp; see the module docstring."""
+    """One-pass shear warp; see the module docstring."""
     n, s, ch, out_h, out_w = _check(images, pos)
     if images.device.type == "cpu":
         return shear_warp_reference(images, pos)
@@ -82,16 +89,14 @@ def shear_warp(images: torch.Tensor, pos: ShearPositions) -> torch.Tensor:
                       device=images.device)
     if out.numel() == 0:
         return out
-    inter = torch.empty((n, s, out_w, ch), dtype=torch.float32,
-                        device=images.device)
     lib = _library()
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device).cuda_stream
         err = lib.shear_warp_launch(
             images.data_ptr(), int(images.dtype == torch.uint8),
             pos.p_a.data_ptr(), pos.s_a.data_ptr(), pos.p_b.data_ptr(),
-            pos.s_b.data_ptr(), pos.swap.data_ptr(), inter.data_ptr(),
-            out.data_ptr(), n, s, ch, out_h, out_w, stream)
+            pos.s_b.data_ptr(), pos.swap.data_ptr(), out.data_ptr(), n, s,
+            ch, out_h, out_w, stream)
     if err != 0:
         raise RuntimeError(f"shear_warp kernel launch failed: CUDA error "
                            f"{err}")

@@ -112,3 +112,29 @@ def jax_augment_draws(key, n):
     vals = jax.vmap(per_sample)(jax.random.split(key, n))
     return {k: np.array(v, np.float32) for k, v in zip(DRAW_KEYS, vals)}
 
+
+# Matrices that stress the shear warp, as (center in source widths, box
+# size in source widths, rotation, flip) on an S-pixel source; a center of
+# None is 5 px from the right and top edges. "outside" warps to all zeros.
+HARD_WARPS = {
+    "zoom_out_4x_rot45": ((0.5, 0.5), 4.0, 45.0, False),   # |m11| ~ |m10|
+    "zoom_in_0.05x": ((0.5, 0.5), 0.05, 20.0, False),
+    "corner_5px": (None, 1.0, 30.0, False),
+    "outside": ((-1.0, -1.0), 0.5, 0.0, False),
+    "rot_-135_flipped": ((0.5, 0.5), 1.0, -135.0, True),
+}
+
+
+def hard_warp_matrix(case, size, out_size):
+    """(1, 2, 3) float32 src->dst matrix of ``HARD_WARPS[case]``, from
+    ``get_affine_transform`` (the flip folded in as augmentation does)."""
+    from rsgnet_tpu_torch.ops.affine import get_affine_transform
+    center, box, rot, flip = HARD_WARPS[case]
+    c = (np.array([size - 5.0, 5.0], np.float32) if center is None
+         else np.array(center, np.float32) * size)
+    m = get_affine_transform(c, box * size / 200.0, rot,
+                             out_size).astype(np.float32)
+    if flip:
+        m = np.stack([-m[:, 0], m[:, 1], m[:, 0] * (size - 1) + m[:, 2]],
+                     axis=-1)
+    return m[None].astype(np.float32)

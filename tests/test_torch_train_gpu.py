@@ -7,10 +7,10 @@ file runs on the machine with the card:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_train_gpu.py -q
 
-Tolerances: kernel vs plain version on the same card, max |diff| <= 1e-3 on
-the 0-255 scale (scaled by range/255 for float sources). Both round every
-multiply and add separately in the same order (the kernel is built with
--fmad=false), so the difference is expected to be 0. Tiny fp32 train step,
+Tolerances: kernel vs plain version on the same card, bit-equal. Both
+round every multiply and add separately in the same order (the kernel is
+built with -fmad=false), and the kernel's one pass computes each
+pass-A value with the plain version's operations. Tiny fp32 train step,
 card vs CPU, with SGD (Adam's first step maps every gradient element to
 about +-lr and so magnifies rounding noise in near-zero elements; SGD
 carries the gradients into the params linearly): loss rtol 1e-4; each
@@ -34,6 +34,8 @@ from rsgnet_tpu_torch.models import get_pose_net, init_weights
 from rsgnet_tpu_torch.ops.affine import get_affine_transform_t
 from rsgnet_tpu_torch.ops.cuda.shear_warp import shear_warp
 from rsgnet_tpu_torch.ops.shear_warp import shear_prepare, shear_warp_reference
+
+from _torch_port_common import HARD_WARPS, hard_warp_matrix
 
 
 @pytest.fixture
@@ -62,7 +64,8 @@ def _train_matrices(n, size, cfg, seed):
     return torch.cat([trans, fixed, flipped])
 
 
-def _kernel_vs_plain(images, trans, out_size):
+def _kernel_vs_plain(images, trans, out_size, both_frames=True):
+    """Runs the kernel once; it must be bit-equal to the plain version."""
     pos = shear_prepare(trans, images.shape[1], out_size)
     before = shear_warp.launches
     got = shear_warp(images, pos)
@@ -70,8 +73,10 @@ def _kernel_vs_plain(images, trans, out_size):
     ref = shear_warp_reference(images, pos)
     torch.cuda.synchronize()
     assert got.shape == ref.shape and got.dtype == torch.float32
-    assert pos.swap.any() and not pos.swap.all()
-    return float((got - ref).abs().max())
+    if both_frames:
+        assert pos.swap.any() and not pos.swap.all()
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+    return got
 
 
 @pytest.mark.gpu
@@ -85,13 +90,10 @@ def test_kernel_matches_plain_at_train_shape(cuda, dtype):
     if dtype == "uint8":
         images = torch.from_numpy(rng.randint(0, 256, (n, size, size, 3))
                                   .astype(np.uint8)).to(cuda)
-        span = 255.0
     else:
         images = torch.from_numpy(rng.uniform(-1, 2, (n, size, size, 3))
                                   .astype(np.float32)).to(cuda)
-        span = 3.0
-    err = _kernel_vs_plain(images, trans, tuple(cfg.MODEL.IMAGE_SIZE))
-    assert err <= 1e-3 * span / 255.0, err
+    _kernel_vs_plain(images, trans, tuple(cfg.MODEL.IMAGE_SIZE))
 
 
 @pytest.mark.gpu
@@ -102,7 +104,39 @@ def test_kernel_matches_plain_at_odd_size(cuda):
     trans = _train_matrices(9, size, cfg, seed=5).to(cuda)
     images = torch.from_numpy(np.random.RandomState(6).randint(
         0, 256, (trans.shape[0], size, size, 1)).astype(np.uint8)).to(cuda)
-    assert _kernel_vs_plain(images, trans, (40, 56)) <= 1e-3
+    _kernel_vs_plain(images, trans, (40, 56))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_kernel_matches_plain_off_the_tile_grid(cuda, dtype):
+    # 45 x 27 outputs: neither side a multiple of the kernel's 32 x 4 tile
+    cfg = Config()
+    cfg.MODEL.IMAGE_SIZE = (45, 27)
+    size = 130
+    trans = _train_matrices(9, size, cfg, seed=8).to(cuda)
+    rng = np.random.RandomState(9)
+    shape = (trans.shape[0], size, size, 3)
+    images = (torch.from_numpy(rng.randint(0, 256, shape).astype(np.uint8))
+              if dtype == "uint8" else
+              torch.from_numpy(rng.uniform(-1, 2, shape).astype(np.float32)))
+    _kernel_vs_plain(images.to(cuda), trans, (45, 27))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("case", sorted(HARD_WARPS))
+def test_kernel_matches_plain_on_hard_matrices(cuda, case, dtype):
+    size, out_size = 640, tuple(Config().MODEL.IMAGE_SIZE)
+    rng = np.random.RandomState(10)
+    shape = (1, size, size, 3)
+    images = (torch.from_numpy(rng.randint(0, 256, shape).astype(np.uint8))
+              if dtype == "uint8" else
+              torch.from_numpy(rng.uniform(-1, 2, shape).astype(np.float32)))
+    trans = torch.from_numpy(hard_warp_matrix(case, size, out_size))
+    got = _kernel_vs_plain(images.to(cuda), trans.to(cuda), out_size,
+                           both_frames=False)
+    assert (float(got.abs().max()) == 0.0) == (case == "outside")
 
 
 @pytest.mark.gpu

@@ -11,6 +11,11 @@
   puts that gap at ~1e-3 on the 0-255 scale; on these inputs it reaches
   3.2e-3 for uint8 and 4.8e-5 for the float sources of range 3, 4.1e-3
   on the 0-255 scale).
+- The same on five hard matrices, one sample each (4x zoom-out at 45
+  degrees, 0.05x zoom-in, a crop centred 5 px from a corner, a crop wholly
+  outside the source, -135 degrees flipped): bit-equal to the eager form
+  on every case; the jitted form's own gap there reaches 1.08e-2 (uint8,
+  the 4x zoom-out) and 1.2e-4 for float sources of range 3.
 - The plain shear warp against the port's exact gather at rot 0, +-90 and
   flips: within 2e-5 on the 0-255 scale where the matrices' entries are
   dyadic, so that both compute their positions exactly; within 2e-3 for
@@ -36,6 +41,8 @@ from rsgnet_tpu.ops import warp as jwarp
 from rsgnet_tpu_torch.ops import shear_warp as tsw
 from rsgnet_tpu_torch.ops import warp as twarp
 from rsgnet_tpu_torch.ops.cuda.shear_warp import shear_warp
+
+from _torch_port_common import HARD_WARPS, hard_warp_matrix
 
 ROTS = [0.0, 17.0, -33.0, 45.0, 60.0, 90.0, -90.0, 120.0, 179.0]
 
@@ -98,6 +105,32 @@ def test_plain_shear_matches_jax(dtype):
     # the transposed source frame was exercised
     pos = tsw.shear_prepare(torch.from_numpy(trans), size, out_size)
     assert pos.swap.any() and not pos.swap.all()
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("case", sorted(HARD_WARPS))
+def test_plain_shear_matches_jax_on_hard_matrices(case, dtype):
+    rng = np.random.RandomState(7)
+    size, out_size = 96, (40, 56)
+    imgs, span = _images(dtype, 1, size, rng)
+    trans = hard_warp_matrix(case, size, out_size)
+    got = _nhwc(tsw.shear_warp_batch(torch.from_numpy(imgs),
+                                     torch.from_numpy(trans), out_size))
+    eager = np.asarray(jsw.shear_warp_batch(jnp.asarray(imgs),
+                                            jnp.asarray(trans), out_size))
+    jit_ref = np.asarray(jax.jit(functools.partial(
+        jsw.shear_warp_batch, out_size=out_size))(jnp.asarray(imgs),
+                                                  jnp.asarray(trans)))
+    gap = np.abs(eager - jit_ref).max()
+    diff = np.abs(got - eager).max()
+    print(f"\n{case} {dtype}: port vs JAX eager {diff:.3e}, JAX eager vs "
+          f"jit {gap:.3e} (range {span:g})")
+    np.testing.assert_array_equal(got, eager)
+    assert np.abs(got - jit_ref).max() <= gap
+    if case == "outside":
+        assert not got.any()
+    else:
+        assert got.max() > 0.5 * span / 3.0
 
 
 def test_plain_shear_exact_angles_match_gather():
@@ -199,3 +232,6 @@ def test_kernel_wrapper_cpu_route_and_checks():
         shear_warp(imgs[..., :0].contiguous(), pos)
     with pytest.raises(TypeError):
         shear_warp(imgs, pos._replace(p_a=pos.p_a.double()))
+    with pytest.raises(ValueError):            # past 31-bit offsets
+        shear_warp(imgs[:1].contiguous(),
+                   tsw.shear_prepare(trans[:1], size, (2 ** 16, 2 ** 16)))
