@@ -7,10 +7,15 @@ Phases (any failure raises and the script exits nonzero):
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. the hand-written CUDA DARK kernel (built from ``rsgnet_tpu_torch/csrc``
-   on first use) against its plain PyTorch version on synthetic peaks at
-   the serving shape (64, 17, 96, 72), blur 11 and 3, plus edge cases
-   (zero map, border peak, tie, N*K no block multiple): peaks identical,
-   maxvals bit-equal, coords at rtol 1e-4 / atol 2e-4;
+   on first use; ptxas registers and spills, shared memory and maps per SM
+   of the blur-11 instantiations) against its plain PyTorch version on
+   synthetic peaks at the serving shape (64, 17, 96, 72), blur 11 and 3,
+   plus edge cases (zero map, border peak, tie, N*K no block multiple) and
+   the ten hard cases of ``tests/_torch_port_common.py::HARD_DARK`` (blur
+   1/5/31, maps smaller than the blur, a plateau tie over rows, peaks on
+   the Newton border, an all-negative map, a blurred max off the raw peak,
+   64x64, N*K = 21), a 16-byte-misaligned batch and an odd width (the
+   kernel's 4-byte path): peaks identical, maxvals and coords bit-equal;
 3. a small-input reference: the tiny float32 RSGNet through the inference
    function on the card and on the CPU, same weights: preds atol 1e-2 px,
    maxvals atol 1e-4;
@@ -23,7 +28,10 @@ Phases (any failure raises and the script exits nonzero):
    kernel's peaks and maxvals on one served batch's heatmaps must equal the
    plain version's;
 5. timings with CUDA events: the kernel and its plain version at buckets
-   32 and 64 (L2 flushed before each launch), one inference call at bucket
+   1, 8, 32 and 64 (L2 flushed before each launch), each beside its bound,
+   the share of the bound it reaches and the time of a plain read of the
+   same maps (``amax``), with the timer's floor (an op on one float); one
+   inference call at bucket
    32, the request latencies of phase 4, and a torch.profiler breakdown
    (device busy share, device time by kernel class) of one inference call
    at buckets 32 and 1; the bucket-32 call's kernel count must not exceed
@@ -96,7 +104,8 @@ def synthetic_heatmaps(n, k, h, w, seed, sigma=3.0):
 
 
 def kernel_vs_plain(torch, dark_decode, reference, hm, blur):
-    """Kernel vs plain version on the card; returns the max coord diff."""
+    """Kernel vs plain version on the card: peaks, maxvals and coords
+    bit-equal. Returns the max coord diff (0)."""
     c_k, v_k, p_k = dark_decode(hm, blur, return_peaks=True)
     c_p, v_p = reference(hm, blur)
     p_p = torch.argmax(hm.reshape(hm.shape[0], hm.shape[1], -1), dim=2)
@@ -107,7 +116,10 @@ def kernel_vs_plain(torch, dark_decode, reference, hm, blur):
     if not torch.equal(v_k, v_p):
         raise AssertionError("kernel maxvals are not bit-equal to the plain "
                              "version's")
-    torch.testing.assert_close(c_k, c_p, rtol=1e-4, atol=2e-4)
+    if not torch.equal(c_k, c_p):
+        raise AssertionError(f"kernel coords are not bit-equal to the plain "
+                             f"version's: max |diff| "
+                             f"{float((c_k - c_p).abs().max()):.3e}")
     return float((c_k - c_p).abs().max())
 
 
@@ -350,7 +362,9 @@ def main():
     from rsgnet_tpu_torch.data.skeletons import get_spec
     from rsgnet_tpu_torch.models import get_pose_net, init_weights
     from rsgnet_tpu_torch.ops.cuda import build
-    from rsgnet_tpu_torch.ops.cuda.dark_decode import dark_decode
+    from rsgnet_tpu_torch.ops.cuda.dark_decode import (blocks_per_sm,
+                                                       dark_decode,
+                                                       shared_bytes)
     from rsgnet_tpu_torch.ops.decode import dark_decode_reference
     from rsgnet_tpu_torch.ops.warp import normalize_image
     from rsgnet_tpu_torch.serving.http_server import (predict_image_remote,
@@ -366,7 +380,9 @@ def main():
                                                  shear_warp_reference)
     from rsgnet_tpu_torch.ops.warp import invert_affine
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from _torch_port_common import HARD_WARPS, hard_warp_matrix
+    from _torch_port_common import (HARD_DARK, HARD_WARPS,
+                                    hard_dark_heatmaps, hard_warp_matrix,
+                                    nchw)
 
     # -- 1. the card ------------------------------------------------------
     card = card_line()
@@ -382,10 +398,19 @@ def main():
         f"{build.library_path('dark_decode').name}")
     ptxas = build.library_path("dark_decode").with_name(
         build.library_path("dark_decode").stem[3:] + ".ptxas.txt")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "smem" in line:
-                log(f"ptxas: {line.strip()}")
+    entry = None
+    for line in ptxas.read_text().splitlines():
+        if "entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and "ILi11E" in entry and any(
+                x in line for x in ("registers", "spill", "smem")):
+            cols = 4 if "ILi11ELi4E" in entry else 1
+            log(f"ptxas, blur 11, {cols} column(s) per thread: "
+                f"{line.strip()}")
+    log(f"shared memory per map at 96x72, blur 11: "
+        f"{shared_bytes(96, 72, 11)} B; maps per SM "
+        f"{blocks_per_sm(96, 72, 11)} (blocks of 128 threads, occupancy "
+        f"calculator)")
     hm64 = torch.from_numpy(synthetic_heatmaps(64, 17, 96, 72, 0)).to(dev)
     err64 = {}
     for blur in (11, 3):
@@ -407,6 +432,18 @@ def main():
         raise AssertionError(f"edge cases decode wrong: {c[:, :4]}")
     kernel_vs_plain(torch, dark_decode, dark_decode_reference, edge_t, 11)
     log("edge cases (zero map, border peak, maxval <= 0, tie, N*K=21): ok")
+    for name, blur in sorted(HARD_DARK.items()):
+        hard = nchw(hard_dark_heatmaps(name)).to(dev)
+        kernel_vs_plain(torch, dark_decode, dark_decode_reference, hard, blur)
+        log(f"hard case {name} {tuple(hard.shape)} blur {blur}: peaks, "
+            f"maxvals and coords bit-equal")
+    shifted = torch.empty(hm64.numel() + 1, device=dev)[1:].view(hm64.shape)
+    shifted.copy_(hm64)                  # 4-byte aligned: the scalar path
+    odd = torch.from_numpy(synthetic_heatmaps(2, 3, 37, 29, 1)).to(dev)
+    for label, x, blur in (("misaligned serving batch", shifted, 11),
+                           ("odd width 37x29", odd, 7)):
+        kernel_vs_plain(torch, dark_decode, dark_decode_reference, x, blur)
+        log(f"{label} {tuple(x.shape)} blur {blur}: bit-equal")
 
     # -- 3. small-input reference: card vs CPU, fp32 tiny model ------------
     tcfg = tiny_rsgnet()
@@ -539,14 +576,20 @@ def main():
     # -- 5. serving timings -----------------------------------------------
     timing = {}
     blur = cfg.TEST.BLUR_KERNEL
-    for n in (32, 64):
+    one = torch.empty(1, device=dev)
+    log(f"[{card}] time_cold floor (zero_ of one float): "
+        f"{time_cold(torch, one.zero_):.4f} ms")
+    for n in (1, 8, 32, 64):
         hm_n = hm64[:n].contiguous()
         ms = time_cold(torch, lambda: dark_decode(hm_n, blur))
         plain_ms = time_cold(torch, lambda: dark_decode_reference(hm_n, blur))
+        read_ms = time_cold(torch, hm_n.amax)
         bound, by = dark_bound_ms(n, 17, 96, 72, blur)
         timing[n] = (ms, plain_ms, bound, by)
-        log(f"[{card}] dark_decode bucket {n}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+        log(f"[{card}] dark_decode bucket {n} ({n * 17} maps): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({by}); {100 * bound / ms:.1f}% of the bound; a plain read "
+            f"of the same maps (amax) {read_ms:.4f} ms")
     serve_fn = engine._fn
     req32 = (np.random.RandomState(4).randint(0, 256, (32, h, w, 3))
              .astype(np.uint8), np.full((32, 2), 200.0, np.float32),
@@ -780,9 +823,11 @@ def main():
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": by,
+        "bound_share": bound / ms,
         "library_ms": None,
         "shape": [64, 17, 96, 72],
         "blur_kernel": blur,
+        "bucket_ms": {str(b): timing[b][0] for b in sorted(timing)},
     }, {
         "name": "shear_warp",
         "route": "cuda",

@@ -11,6 +11,9 @@ route: nothing falls back.
 
 ``dark_decode.launches`` counts kernel launches; it is raised by one right
 after each successful launch and nowhere else.
+
+The kernel runs one block of ``BLOCK_THREADS`` per map and keeps one copy
+of the map in shared memory (``shared_bytes``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,18 @@ from rsgnet_tpu_torch.ops.decode import (_cv2_gaussian_kernel_1d,
 
 MAX_BLUR_KERNEL = 31                  # DARK_MAX_KSIZE in the .cu source
 MAX_SHARED_BYTES = 232448             # per block on an H100 (227 KB)
+_SCRATCH_WORDS = 80                   # DARK_SCRATCH_WORDS in the .cu source
+_GROUPS = 4                           # DARK_GROUPS in the .cu source
+BLOCK_THREADS = 128                   # threads per map (one block each)
+MAX_WIDTH = _GROUPS * BLOCK_THREADS   # a round of the x pass holds a row
+
+
+def shared_bytes(h: int, w: int, blur_kernel: int) -> int:
+    """Shared memory of one block: the staged rows, each after a gap of
+    round_up(r, 4) zeros and one more gap after the last, then the 5x5
+    tile and the reduction words (``dark_decode_shared_bytes`` in C)."""
+    gap = ((blur_kernel - 1) // 2 + 3) & ~3
+    return 4 * (gap + h * (w + gap) + _SCRATCH_WORDS)
 
 
 @functools.lru_cache(maxsize=1)
@@ -33,13 +48,32 @@ def _library():
     lib.dark_decode_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     lib.dark_decode_launch.restype = ctypes.c_int
     lib.dark_decode_max_ksize.restype = ctypes.c_int
-    if lib.dark_decode_max_ksize() != MAX_BLUR_KERNEL:
+    lib.dark_decode_shared_bytes.argtypes = [ctypes.c_int] * 3
+    lib.dark_decode_shared_bytes.restype = ctypes.c_longlong
+    lib.dark_decode_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+    lib.dark_decode_blocks_per_sm.restype = ctypes.c_int
+    if (lib.dark_decode_max_ksize() != MAX_BLUR_KERNEL
+            or any(lib.dark_decode_shared_bytes(h, w, ks)
+                   != shared_bytes(h, w, ks)
+                   for h, w, ks in ((96, 72, 11), (8, 6, 1), (64, 64, 31)))):
         raise RuntimeError("dark_decode.cu and its wrapper disagree on the "
-                           "largest blur kernel")
+                           "largest blur kernel or the shared memory")
     return lib
+
+
+def blocks_per_sm(h: int, w: int, blur_kernel: int) -> int:
+    """Maps (blocks of ``BLOCK_THREADS``) one SM of the current card holds
+    at once, from the CUDA occupancy calculator."""
+    n = _library().dark_decode_blocks_per_sm(h, w, blur_kernel,
+                                             BLOCK_THREADS)
+    if n < 0:
+        raise RuntimeError(f"no occupancy for {h}x{w} maps at blur "
+                           f"{blur_kernel}")
+    return n
 
 
 def _check(heatmaps, blur_kernel):
@@ -69,9 +103,11 @@ def dark_decode(heatmaps: torch.Tensor, blur_kernel: int = 11,
     if heatmaps.device.type != "cuda":
         raise ValueError(f"no DARK kernel for device {heatmaps.device}")
     n, k, h, w = heatmaps.shape
-    if 2 * h * w * 4 > MAX_SHARED_BYTES:
-        raise ValueError(f"{h}x{w} maps need {2 * h * w * 4} B of shared "
-                         f"memory per block; the kernel holds at most "
+    need = shared_bytes(h, w, blur_kernel)
+    if h * w == 0 or w > MAX_WIDTH or need > MAX_SHARED_BYTES:
+        raise ValueError(f"{h}x{w} maps need {need} B of shared memory per "
+                         f"block at blur {blur_kernel}; the kernel holds "
+                         f"non-empty maps up to {MAX_WIDTH} wide in at most "
                          f"{MAX_SHARED_BYTES}")
     coords = torch.empty((n, k, 2), dtype=torch.float32,
                          device=heatmaps.device)
@@ -90,7 +126,7 @@ def dark_decode(heatmaps: torch.Tensor, blur_kernel: int = 11,
         err = lib.dark_decode_launch(
             heatmaps.data_ptr(), coords.data_ptr(), maxvals.data_ptr(),
             peaks.data_ptr() if return_peaks else None,
-            n * k, h, w, taps, blur_kernel, stream)
+            n * k, h, w, taps, blur_kernel, BLOCK_THREADS, stream)
     if err != 0:
         raise RuntimeError(f"dark_decode kernel launch failed: CUDA error "
                            f"{err}")

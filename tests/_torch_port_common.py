@@ -138,3 +138,67 @@ def hard_warp_matrix(case, size, out_size):
         m = np.stack([-m[:, 0], m[:, 1], m[:, 0] * (size - 1) + m[:, 2]],
                      axis=-1)
     return m[None].astype(np.float32)
+
+
+# Heatmaps that stress the DARK decode, as name -> blur kernel; the maps
+# come from ``hard_dark_heatmaps(name)``. They cover the blur's edge cases
+# (ks 1 and 31, maps smaller than the blur), the argmax tie order, the
+# Newton step's 2-px border, maxval <= 0, a blurred max that is not at the
+# raw peak, the MPII map shape and a map count that fills no warp or block.
+HARD_DARK = {
+    "blur1_64x48": 1,
+    "blur5_64x48": 5,
+    "blur31_64x48": 31,
+    "smaller_than_blur_8x6": 11,
+    "plateau_tie_rows": 11,
+    "newton_border": 11,
+    "all_negative": 11,
+    "blurred_max_off_peak": 11,
+    "mpii_64x64": 11,
+    "nk_21": 11,
+}
+
+
+def _gaussian_map(h, w, cx, cy, sigma, amp=1.0):
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    return (amp * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2)
+                         / (2 * sigma ** 2))).astype(np.float32)
+
+
+def hard_dark_heatmaps(name):
+    """(N, H, W, K) float32 heatmaps of ``HARD_DARK[name]`` (the JAX
+    package's layout; ``nchw`` gives the port's), made from a seed. The
+    64x48 cases share one shape, (3, 64, 48, 7): 21 maps, so the JAX side
+    compiles once per blur kernel."""
+    rng = np.random.RandomState(sorted(HARD_DARK).index(name))
+    if name == "smaller_than_blur_8x6":
+        hm = rng.uniform(0, 0.2, (2, 8, 6, 3)).astype(np.float32)
+        for i, (y, x) in enumerate([(2, 2), (5, 3), (0, 5), (3, 2), (7, 0),
+                                    (4, 3)]):
+            hm[i // 3, y, x, i % 3] = 1.0
+        return hm
+    if name == "mpii_64x64":
+        return make_heatmaps(n=1, h=64, w=64, k=16, seed=8)[0]
+    h, w = 64, 48
+    if name == "all_negative":
+        return -rng.uniform(0.1, 1.0, (3, h, w, 7)).astype(np.float32)
+    hm = make_heatmaps(n=3, h=h, w=w, k=7, seed=9, sigma=3.0)[0]
+    if name == "plateau_tie_rows":
+        hm[0, :, :, 0] = _gaussian_map(h, w, 20.0, 30.0, 4.0)
+        hm[0, 28:33, 17:24, 0] = 1.0         # five rows of equal maxima
+        hm[0, :, :, 1] = rng.uniform(0, 0.01, (h, w))
+        hm[0, 10, 40, 1] = hm[0, 12, 5, 1] = hm[0, 50, 20, 1] = 0.5
+    elif name == "newton_border":
+        for j, (cx, cy) in enumerate([(2, 30), (w - 3, 30), (20, 2),
+                                      (20, h - 3)]):
+            hm[1, :, :, j] = _gaussian_map(h, w, cx + 0.3, cy - 0.2, 2.0)
+            hm[1, :, :, j] += rng.uniform(0, 0.01, (h, w))
+            hm[1, cy, cx, j] += 0.05         # the integer peak stays put
+    elif name == "blurred_max_off_peak":
+        for j in range(2):
+            hm[2, :, :, j] = _gaussian_map(h, w, 30.0 + j, 40.0, 6.0, 0.9)
+            hm[2, 10 + j, 10, j] = 1.0       # a lone spike: the raw peak
+    elif name not in ("blur1_64x48", "blur5_64x48", "blur31_64x48",
+                      "nk_21"):
+        raise KeyError(name)
+    return hm
