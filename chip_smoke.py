@@ -362,7 +362,7 @@ def main():
     from rsgnet_tpu_torch.data.skeletons import get_spec
     from rsgnet_tpu_torch.models import get_pose_net, init_weights
     from rsgnet_tpu_torch.ops.cuda import build
-    from rsgnet_tpu_torch.ops.cuda.dark_decode import (blocks_per_sm,
+    from rsgnet_tpu_torch.ops.cuda.dark_decode import (BLOCK_THREADS,
                                                        dark_decode,
                                                        shared_bytes)
     from rsgnet_tpu_torch.ops.decode import dark_decode_reference
@@ -398,7 +398,7 @@ def main():
         f"{build.library_path('dark_decode').name}")
     ptxas = build.library_path("dark_decode").with_name(
         build.library_path("dark_decode").stem[3:] + ".ptxas.txt")
-    entry = None
+    entry, regs = None, None
     for line in ptxas.read_text().splitlines():
         if "entry function" in line:
             entry = line.split("'")[1]
@@ -407,10 +407,18 @@ def main():
             cols = 4 if "ILi11ELi4E" in entry else 1
             log(f"ptxas, blur 11, {cols} column(s) per thread: "
                 f"{line.strip()}")
-    log(f"shared memory per map at 96x72, blur 11: "
-        f"{shared_bytes(96, 72, 11)} B; maps per SM "
-        f"{blocks_per_sm(96, 72, 11)} (blocks of 128 threads, occupancy "
-        f"calculator)")
+            if cols == 4 and "registers" in line:
+                regs = int(line.split("Used ")[1].split(" registers")[0])
+    # maps per SM on an H100: 64 K registers (256 per warp at a time), 228
+    # KB of shared memory (1 KB reserved per block), 2,048 threads
+    smem = shared_bytes(96, 72, 11)
+    warps = BLOCK_THREADS // 32
+    by_regs = 65536 // (-(-regs * 32 // 256) * 256) // warps
+    by_smem = 228 * 1024 // (smem + 1024)
+    log(f"shared memory per map at 96x72, blur 11: {smem} B; maps per SM "
+        f"{min(by_regs, by_smem, 2048 // BLOCK_THREADS)} (by registers "
+        f"{by_regs}, by shared memory {by_smem}; blocks of "
+        f"{BLOCK_THREADS} threads)")
     hm64 = torch.from_numpy(synthetic_heatmaps(64, 17, 96, 72, 0)).to(dev)
     err64 = {}
     for blur in (11, 3):

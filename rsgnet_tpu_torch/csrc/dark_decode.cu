@@ -33,7 +33,7 @@
 //      k * +0.0 to an accumulator that is never -0.0, exactly as the plain
 //      version's zero padding does. 96x72 at ks = 11 takes 31,072 B, so
 //      shared memory holds 7 maps per SM (the two copies before held 4);
-//      at 85 registers a thread, 5 are resident (660 of bucket 64's 1,088
+//      at 89 registers a thread, 5 are resident (660 of bucket 64's 1,088
 //      maps at once), and capping registers for 7 ran no faster. The load
 //      moves 16 bytes per access (where w % 4 == 0 and the maps are 16-byte
 //      aligned; else 4), eight in flight per thread, and the first-match
@@ -67,7 +67,7 @@
 #include <mutex>
 
 #define DARK_MAX_KSIZE 31
-#define DARK_MAX_THREADS 256
+#define DARK_THREADS 128         // one block of 128 threads per map
 #define DARK_SCRATCH_WORDS 80    // tile (25 of 32), 3 x 16 reduction words
 #define DARK_GROUPS 4            // x-pass groups per thread and round
 #define DARK_MAX_SHARED 232448   // per block on an H100 (227 KB)
@@ -178,10 +178,11 @@ __device__ __forceinline__ void stage_map(const float* __restrict__ src,
   }
 }
 
-// One block per map; C columns per thread (4 where w % 4 == 0 and the
-// maps are 16-byte aligned, else 1).
+// One block of DARK_THREADS per map; C columns per thread (4 where
+// w % 4 == 0 and the maps are 16-byte aligned, else 1). The second bound
+// caps registers at 128 a thread up to ks = 15, and leaves them free above.
 template <int KS, int C>
-__global__ void __launch_bounds__(DARK_MAX_THREADS, KS <= 15 ? 2 : 1)
+__global__ void __launch_bounds__(DARK_THREADS, KS <= 15 ? 4 : 2)
 dark_decode_kernel(const float* __restrict__ heatmaps,
                    float* __restrict__ coords, float* __restrict__ maxvals,
                    int* __restrict__ peaks, int h, int w, int cols,
@@ -201,8 +202,9 @@ dark_decode_kernel(const float* __restrict__ heatmaps,
   const int hw = h * w, wq = w / C;
   const int map = blockIdx.x;
   const float* src = heatmaps + (size_t)map * hw;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  constexpr int nt = DARK_THREADS, nwarps = nt / 32;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   const unsigned full = 0xffffffffu;
 
   // 1. stage the map with its gaps of zeros; first-match argmax on the way
@@ -415,23 +417,21 @@ long long dark_decode_shared_bytes(int h, int w, int ksize) {
   return 4LL * (g + (long long)h * (w + g) + DARK_SCRATCH_WORDS);
 }
 
-static bool dark_args_ok(int h, int w, int ksize, int threads) {
+static bool dark_args_ok(int h, int w, int ksize) {
   return ksize >= 1 && ksize <= DARK_MAX_KSIZE && ksize % 2 == 1 && h >= 1 &&
-         w >= 1 && threads >= 32 && threads <= DARK_MAX_THREADS &&
-         threads % 32 == 0 && w <= DARK_GROUPS * threads &&
+         w >= 1 && w <= DARK_GROUPS * DARK_THREADS &&
          dark_decode_shared_bytes(h, w, ksize) <= DARK_MAX_SHARED;
 }
 
-// Launches one block of `threads` (a multiple of 32) per map on `stream`.
+// Launches one block of DARK_THREADS per map on `stream`.
 // `taps_host` holds `ksize` float32 coefficients in host memory. `peaks`
 // (may be null) receives each map's flat argmax index. Returns
 // cudaGetLastError() after the launch (0 = success); the caller raises on
 // anything else.
 int dark_decode_launch(const void* heatmaps, void* coords, void* maxvals,
                        void* peaks, int num_maps, int h, int w,
-                       const float* taps_host, int ksize, int threads,
-                       void* stream) {
-  if (!dark_args_ok(h, w, ksize, threads) || num_maps < 1)
+                       const float* taps_host, int ksize, void* stream) {
+  if (!dark_args_ok(h, w, ksize) || num_maps < 1)
     return (int)cudaErrorInvalidValue;
   const bool c4 =
       w % 4 == 0 && reinterpret_cast<uintptr_t>(heatmaps) % 16 == 0;
@@ -443,30 +443,16 @@ int dark_decode_launch(const void* heatmaps, void* coords, void* maxvals,
     taps.k[t] = (t < ksize) ? taps_host[t] : 0.0f;
   // y pass: cols column groups x strips of rows fill the block's threads
   const int wq = c4 ? w / 4 : w;
-  int cols = wq < threads ? wq : threads;
-  int strips = threads / cols < h ? threads / cols : h;
+  int cols = wq < DARK_THREADS ? wq : DARK_THREADS;
+  int strips = DARK_THREADS / cols < h ? DARK_THREADS / cols : h;
   const float* hm = (const float*)heatmaps;
   void* args[] = {&hm, &coords, &maxvals, &peaks, &h, &w, &cols, &strips,
                   &taps};
-  err = cudaLaunchKernel(kernel, dim3(num_maps), dim3(threads), args,
+  err = cudaLaunchKernel(kernel, dim3(num_maps), dim3(DARK_THREADS), args,
                          (size_t)dark_decode_shared_bytes(h, w, ksize),
                          (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-// Blocks (maps) of `threads` that one SM holds at once for 16-byte-aligned
-// h x w maps at blur ksize, or -1 on an error.
-int dark_decode_blocks_per_sm(int h, int w, int ksize, int threads) {
-  if (!dark_args_ok(h, w, ksize, threads)) return -1;
-  const void* kernel = kernel_for(ksize, w % 4 == 0);
-  int blocks = -1;
-  if (configure_once(kernel, ksize, w % 4 == 0) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, kernel, threads,
-          (size_t)dark_decode_shared_bytes(h, w, ksize)) != cudaSuccess)
-    return -1;
-  return blocks;
 }
 
 }  // extern "C"

@@ -29,7 +29,7 @@ MAX_BLUR_KERNEL = 31                  # DARK_MAX_KSIZE in the .cu source
 MAX_SHARED_BYTES = 232448             # per block on an H100 (227 KB)
 _SCRATCH_WORDS = 80                   # DARK_SCRATCH_WORDS in the .cu source
 _GROUPS = 4                           # DARK_GROUPS in the .cu source
-BLOCK_THREADS = 128                   # threads per map (one block each)
+BLOCK_THREADS = 128                   # DARK_THREADS in the .cu source
 MAX_WIDTH = _GROUPS * BLOCK_THREADS   # a round of the x pass holds a row
 
 
@@ -48,14 +48,11 @@ def _library():
     lib.dark_decode_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p]
     lib.dark_decode_launch.restype = ctypes.c_int
     lib.dark_decode_max_ksize.restype = ctypes.c_int
     lib.dark_decode_shared_bytes.argtypes = [ctypes.c_int] * 3
     lib.dark_decode_shared_bytes.restype = ctypes.c_longlong
-    lib.dark_decode_blocks_per_sm.argtypes = [ctypes.c_int] * 4
-    lib.dark_decode_blocks_per_sm.restype = ctypes.c_int
     if (lib.dark_decode_max_ksize() != MAX_BLUR_KERNEL
             or any(lib.dark_decode_shared_bytes(h, w, ks)
                    != shared_bytes(h, w, ks)
@@ -63,17 +60,6 @@ def _library():
         raise RuntimeError("dark_decode.cu and its wrapper disagree on the "
                            "largest blur kernel or the shared memory")
     return lib
-
-
-def blocks_per_sm(h: int, w: int, blur_kernel: int) -> int:
-    """Maps (blocks of ``BLOCK_THREADS``) one SM of the current card holds
-    at once, from the CUDA occupancy calculator."""
-    n = _library().dark_decode_blocks_per_sm(h, w, blur_kernel,
-                                             BLOCK_THREADS)
-    if n < 0:
-        raise RuntimeError(f"no occupancy for {h}x{w} maps at blur "
-                           f"{blur_kernel}")
-    return n
 
 
 def _check(heatmaps, blur_kernel):
@@ -126,7 +112,7 @@ def dark_decode(heatmaps: torch.Tensor, blur_kernel: int = 11,
         err = lib.dark_decode_launch(
             heatmaps.data_ptr(), coords.data_ptr(), maxvals.data_ptr(),
             peaks.data_ptr() if return_peaks else None,
-            n * k, h, w, taps, blur_kernel, BLOCK_THREADS, stream)
+            n * k, h, w, taps, blur_kernel, stream)
     if err != 0:
         raise RuntimeError(f"dark_decode kernel launch failed: CUDA error "
                            f"{err}")

@@ -92,6 +92,44 @@ def test_dark_decode_matches_jax(blur, against):
     _dark_decode_vs_jax(hm, blur, against)
 
 
+def test_dark_recovers_subpixel_peaks():
+    hm, centers = make_heatmaps(seed=3)
+    c, _ = dark_decode(nchw(hm), 11)
+    assert np.abs(_np(c) - centers).max() < 0.35
+
+
+def test_dark_zero_map_and_border_peak():
+    hm = np.zeros((1, 64, 48, 2), np.float32)
+    hm[0, 1, 1, 1] = 1.0                   # too close to the border
+    c, v = dark_decode(nchw(hm), 11)
+    assert _np(c)[0, 0].tolist() == [0.0, 0.0] and _np(v)[0, 0, 0] == 0.0
+    assert _np(c)[0, 1].tolist() == [1.0, 1.0]
+
+
+def test_dark_wrapper_rejects_what_the_kernel_does_not_take():
+    hm = torch.zeros(1, 2, 8, 8)
+    for bad in (0, 2, MAX_BLUR_KERNEL + 2, 3.0):
+        with pytest.raises(ValueError):
+            dark_decode(hm, bad)
+    with pytest.raises(TypeError):
+        dark_decode(hm.double(), 3)
+    with pytest.raises(ValueError):
+        dark_decode(hm.transpose(2, 3), 3)
+    with pytest.raises(ValueError):
+        dark_decode(hm[0], 3)
+
+
+def test_dark_wrapper_counts_no_launch_on_cpu():
+    before = dark_decode.launches
+    dark_decode(torch.rand(1, 2, 8, 8), 3)
+    assert dark_decode.launches == before
+
+
+def test_dark_wrapper_refuses_other_devices():
+    with pytest.raises(ValueError):
+        dark_decode(torch.zeros(1, 2, 8, 8, device="meta"), 3)
+
+
 @pytest.mark.parametrize("against", ["pallas", "jnp"])
 @pytest.mark.parametrize("case", sorted(HARD_DARK))
 def test_dark_decode_hard_cases_match_jax(case, against):
