@@ -1,0 +1,7 @@
+"""CUDA kernels launched in the traced stretch over the steps it
+completed."""
+
+
+def read(res):
+    tr = res["trace"]
+    return tr.launches() / tr.units if tr.units else None
