@@ -29,6 +29,18 @@ solved where the canvases lie, and the keypoints are mapped back with the
 closed-form rot-0 transform in elementwise fp32 (``ops/affine.py::
 rot0_transform_t``) where the boxes lie, which gives the same bits on the
 host and on the card: the eager functions and the artifact agree exactly.
+
+Tracing (``utils/profiler.py``): an eager call made under a trace context
+(a traced batch's, or on a thread being profiled) records
+``pipeline.call`` and, inside ``DevicePipeline``, a span per stage
+(``pipeline.crop`` or ``pipeline.normalize``, ``pipeline.forward``, twice
+under flip-test, ``pipeline.flip``: the input's flip, then ``flip_back``
+and the average, ``pipeline.decode``), each with CUDA events whose device
+milliseconds the recorder reads later. The first call of each input shape
+records ``pipeline.first_call``, always (cuDNN's autotuning of the shape
+happens in it; on a card it waits for the device). The decision is made
+in the eager wrapper, outside the module that ``torch.export`` captures,
+so the artifact holds none of it.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ from rsgnet_tpu_torch.ops.flip import flip_back
 from rsgnet_tpu_torch.ops.affine import get_affine_transform_t
 from rsgnet_tpu_torch.ops.warp import (crop_and_normalize, normalize_image,
                                       resolve_eval_warp)
+from rsgnet_tpu_torch.utils import profiler
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -95,14 +108,21 @@ def configure_cudnn(cfg: Config):
     configure_precision()
 
 
-def heatmaps_with_flip_test(model, images, cfg: Config, perm):
-    """Model forward (+ flip-test average). images: (N, 3, H, W)."""
-    output = model(images)
+def heatmaps_with_flip_test(model, images, cfg: Config, perm,
+                            stage=profiler.no_stage):
+    """Model forward (+ flip-test average). images: (N, 3, H, W).
+    ``stage(name)`` wraps each step (``profiler.stages``)."""
+    with stage("pipeline.forward"):
+        output = model(images)
     if not cfg.TEST.FLIP_TEST:
         return output
-    flipped = model(torch.flip(images, dims=(3,)))
-    flipped = flip_back(flipped, perm, shift=cfg.TEST.SHIFT_HEATMAP)
-    return (output + flipped) * 0.5
+    with stage("pipeline.flip"):
+        images = torch.flip(images, dims=(3,))
+    with stage("pipeline.forward"):
+        flipped = model(images)
+    with stage("pipeline.flip"):
+        flipped = flip_back(flipped, perm, shift=cfg.TEST.SHIFT_HEATMAP)
+        return (output + flipped) * 0.5
 
 
 def to_device(x, device):
@@ -125,12 +145,29 @@ def _make_fn(cfg: Config, model, device, normalize_input=False,
     configure_precision()
     pipeline = DevicePipeline(cfg, model.to(device), normalize_input,
                               src_size)
+    shapes = set()                    # input shapes called at least once
 
-    @torch.inference_mode()
-    def fn(images, centers, scales):
+    def run(images, centers, scales):
         return pipeline(to_device(images, device),
                         torch.as_tensor(np.asarray(centers, np.float32)),
                         torch.as_tensor(np.asarray(scales, np.float32)))
+
+    @torch.inference_mode()
+    def fn(images, centers, scales):
+        key = (tuple(images.shape), str(images.dtype))
+        if key not in shapes:
+            shapes.add(key)
+            with profiler.span("pipeline.first_call", setup=True,
+                               shape=list(key[0])):
+                out = run(images, centers, scales)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+            return out
+        ctx = profiler.current()
+        if ctx is None:
+            return run(images, centers, scales)
+        with profiler.activate(ctx), profiler.span("pipeline.call"):
+            return run(images, centers, scales)
 
     return fn
 
@@ -179,25 +216,32 @@ class DevicePipeline(nn.Module):
 
     def forward(self, images, centers, scales):
         cfg = self.cfg
+        stage = profiler.stages(images.device)
         if self.src_size is None:
-            x = images.to(torch.float32)
-            if self.normalize_input:
-                x = normalize_image(x)
-            x = x.permute(0, 3, 1, 2).contiguous()          # NHWC -> NCHW
+            with stage("pipeline.normalize"):
+                x = images.to(torch.float32)
+                if self.normalize_input:
+                    x = normalize_image(x)
+                x = x.permute(0, 3, 1, 2).contiguous()      # NHWC -> NCHW
         else:
             if tuple(images.shape[1:3]) != self.src_size:
                 raise ValueError(f"source canvases are "
                                  f"{tuple(images.shape[1:3])}, the function "
                                  f"was built for {self.src_size}")
-            # the crop transforms are solved where the canvases lie
-            image_size = tuple(cfg.MODEL.IMAGE_SIZE)            # (w, h)
-            c, s = (to_device(t, images.device) for t in (centers, scales))
-            trans = get_affine_transform_t(c, s, torch.zeros_like(c[:, 0]),
-                                           image_size)
-            x = crop_and_normalize(images, trans, image_size, warp=self.warp)
-        output = heatmaps_with_flip_test(self.model, x, cfg, self.perm)
-        return get_final_preds(
-            output.contiguous(), centers, scales,
-            post_process=cfg.TEST.POST_PROCESS,
-            use_dark=cfg.TEST.DECODE.lower() == "dark",
-            blur_kernel=cfg.TEST.BLUR_KERNEL)
+            with stage("pipeline.crop"):
+                # the crop transforms are solved where the canvases lie
+                image_size = tuple(cfg.MODEL.IMAGE_SIZE)        # (w, h)
+                c, s = (to_device(t, images.device)
+                        for t in (centers, scales))
+                trans = get_affine_transform_t(
+                    c, s, torch.zeros_like(c[:, 0]), image_size)
+                x = crop_and_normalize(images, trans, image_size,
+                                       warp=self.warp)
+        output = heatmaps_with_flip_test(self.model, x, cfg, self.perm,
+                                         stage)
+        with stage("pipeline.decode"):
+            return get_final_preds(
+                output.contiguous(), centers, scales,
+                post_process=cfg.TEST.POST_PROCESS,
+                use_dark=cfg.TEST.DECODE.lower() == "dark",
+                blur_kernel=cfg.TEST.BLUR_KERNEL)

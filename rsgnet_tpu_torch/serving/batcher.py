@@ -30,6 +30,19 @@ one fast round trip instead of costing every client a deep queue. A
 request may also carry a ``timeout_s``: one already past its deadline at
 DISPATCH time is completed with ``DeadlineExceededError`` instead of
 paying device time for a response its client stopped waiting for.
+
+Tracing (``utils/profiler.py``): a request submitted from a thread that is
+being profiled is traced. It records ``serve.submit`` (around ``submit``,
+on the client's thread), ``serve.queue`` (from ``submit`` to the start of
+its batch's dispatch) and ``serve.request`` (from ``submit`` to its future
+resolving). A batch holding a traced request records the dispatcher's
+states, which tile that thread's time (``serve.idle``: waiting on an empty
+queue; ``serve.collect``: holding requests, up to ``max_wait_ms``;
+``serve.slot_wait``: waiting for an in-flight slot; ``serve.dispatch``:
+concat, padding and ``engine.run``), and the completer's
+(``serve.complete_idle``, ``serve.to_host``, ``serve.fanout``), each
+listing the batch's traced request ids. ``stats()`` always counts the
+queue wait's recent percentiles and the dispatcher's seconds per state.
 """
 from __future__ import annotations
 
@@ -43,8 +56,11 @@ from typing import Tuple
 import numpy as np
 
 from rsgnet_tpu_torch.serving.engine import ServingEngine, to_host
+from rsgnet_tpu_torch.utils import profiler
 
 _STOP = object()
+_STATES = ("idle", "collect", "slot_wait", "dispatch")
+_REQUESTS = "requests"      # the trace's track of the requests' own spans
 
 
 class QueueFullError(RuntimeError):
@@ -77,6 +93,7 @@ class _Pending:
     future: Future
     deadline: float | None = None       # absolute perf_counter() time
     t_submit: float = field(default_factory=time.perf_counter)
+    rid: int | None = None              # the request's id when traced
 
 
 class DynamicBatcher:
@@ -110,6 +127,8 @@ class DynamicBatcher:
         self._n_expired = 0             # dropped at dispatch (deadline past)
         self._queued_n = 0              # instances currently in the queue
         self._latencies: list = []          # bounded, most recent first
+        self._queue_waits: list = []        # the same window, queue wait
+        self._state_s = dict.fromkeys(_STATES, 0.0)   # the dispatcher's
         self._dispatcher = threading.Thread(target=self._dispatch_loop,
                                             name="batcher-dispatch",
                                             daemon=True)
@@ -132,6 +151,13 @@ class DynamicBatcher:
         """
         if self._closed:
             raise RuntimeError("batcher is closed")
+        if profiler.current() is None:
+            return self._submit(images, centers, scales, timeout_s, None)
+        rid = profiler.new_id()
+        with profiler.span("serve.submit", ids=(rid,)):
+            return self._submit(images, centers, scales, timeout_s, rid)
+
+    def _submit(self, images, centers, scales, timeout_s, rid):
         n = self.engine.validate(images, centers, scales)
         if n > self.max_batch:
             raise ValueError(f"request has {n} instances > max_batch "
@@ -140,7 +166,7 @@ class DynamicBatcher:
                     if timeout_s is not None else None)
         p = _Pending(np.asarray(images), np.asarray(centers, np.float32),
                      np.asarray(scales, np.float32), n, Future(),
-                     deadline=deadline)
+                     deadline=deadline, rid=rid)
         with self._lock:
             # bound on what is ALREADY waiting — never on the incoming
             # request's own size, so any legal (<= max_batch) request is
@@ -167,10 +193,18 @@ class DynamicBatcher:
         futures in request order."""
         if self._closed:
             raise RuntimeError("batcher is closed")
+        requests = list(requests)
+        if profiler.current() is None:
+            return self._submit_many(requests, timeout_s, None)
+        rids = tuple(profiler.new_id() for _ in requests)
+        with profiler.span("serve.submit", ids=rids):
+            return self._submit_many(requests, timeout_s, rids)
+
+    def _submit_many(self, requests, timeout_s, rids):
         pendings = []
         deadline = (time.perf_counter() + timeout_s
                     if timeout_s is not None else None)
-        for images, centers, scales in requests:
+        for i, (images, centers, scales) in enumerate(requests):
             n = self.engine.validate(images, centers, scales)
             if n > self.max_batch:
                 raise ValueError(f"request has {n} instances > max_batch "
@@ -178,7 +212,7 @@ class DynamicBatcher:
             pendings.append(_Pending(
                 np.asarray(images), np.asarray(centers, np.float32),
                 np.asarray(scales, np.float32), n, Future(),
-                deadline=deadline))
+                deadline=deadline, rid=rids[i] if rids else None))
         total = sum(p.n for p in pendings)
         with self._lock:
             if (self.max_queued is not None
@@ -218,6 +252,7 @@ class DynamicBatcher:
     def stats(self) -> dict:
         with self._lock:
             lat = np.asarray(self._latencies, np.float64)
+            qw = np.asarray(self._queue_waits, np.float64)
             out = {"requests": self._n_requests,
                    "batches": self._n_batches,
                    "instances": self._n_instances,
@@ -230,6 +265,10 @@ class DynamicBatcher:
         if lat.size:
             out["latency_p50_ms"] = float(np.percentile(lat, 50) * 1e3)
             out["latency_p95_ms"] = float(np.percentile(lat, 95) * 1e3)
+        if qw.size:
+            out["queue_wait_p50_ms"] = float(np.percentile(qw, 50) * 1e3)
+            out["queue_wait_p95_ms"] = float(np.percentile(qw, 95) * 1e3)
+        out["dispatcher_s"] = dict(self._state_s)
         out["engine"] = self.engine.stats()
         return out
 
@@ -273,20 +312,24 @@ class DynamicBatcher:
         p.future.set_exception(DeadlineExceededError(
             f"deadline passed before dispatch (queued "
             f"{now - p.t_submit:.3f}s)"))
+        _resolved(p, error="expired")
         return True
 
     def _dispatch_loop(self):
         carry = None                    # request that overflowed last group
         stopping = False
+        t_free = time.perf_counter()    # the end of the last dispatch
         while not stopping:
             if carry is not None:
                 first, carry = carry, None
+                t_first = t_free        # no idle: the carry was held
             else:
                 first = self._take()
                 if first is _STOP:
                     break
+                t_first = time.perf_counter()
             if self._expire(first):
-                continue
+                continue                # back to idle from t_free
             group, total = [first], first.n
             deadline = first.t_submit + self.max_wait_s
             while total < self.max_batch:
@@ -313,7 +356,7 @@ class DynamicBatcher:
                     break
                 group.append(nxt)
                 total += nxt.n
-            self._dispatch(group, total)
+            t_free = self._dispatch(group, total, t_free, t_first)
         # drain anything still queued (close() guarantees completion —
         # still-live requests run, already-expired ones complete as such)
         leftovers = [carry] if carry is not None else []
@@ -331,7 +374,8 @@ class DynamicBatcher:
                 p = leftovers.pop(0)
                 group.append(p)
                 total += p.n
-            self._dispatch(group, total)
+            now = time.perf_counter()
+            self._dispatch(group, total, now, now)
         self._done_q.put(_STOP)
 
     def _chunks_for_buckets(self, group, total):
@@ -379,12 +423,32 @@ class DynamicBatcher:
             return chunks
         return [(group, total)]
 
-    def _dispatch(self, group, total):
+    def _dispatch(self, group, total, t_free, t_first):
+        """Dispatch a collected group; the dispatcher was idle from
+        ``t_free`` and collecting from ``t_first``. Returns the end of the
+        last dispatch."""
+        t = time.perf_counter()
+        self._state_s["idle"] += t_first - t_free
+        self._state_s["collect"] += t - t_first
+        ids = tuple(g.rid for g in group if g.rid is not None)
+        if ids:
+            profiler.record("serve.idle", profiler.to_ns(t_free),
+                            profiler.to_ns(t_first))
+            profiler.record("serve.collect", profiler.to_ns(t_first),
+                            profiler.to_ns(t), ids)
         for chunk, chunk_total in self._chunks_for_buckets(group, total):
-            self._dispatch_one(chunk, chunk_total)
+            t = self._dispatch_one(chunk, chunk_total, t)
+        return t
 
-    def _dispatch_one(self, group, total):
+    def _dispatch_one(self, group, total, t0):
+        """Wait for a slot (from ``t0``), then concat, pad and hand the
+        chunk to the engine. Returns when the engine has it."""
         self._slots.acquire()          # bounds batches in flight
+        t1 = time.perf_counter()
+        waits = [t0 - g.t_submit for g in group]
+        ids = tuple(g.rid for g in group if g.rid is not None)
+        sid = profiler.new_id() if ids else None
+        ctx = profiler.TraceContext(ids, sid) if ids else None
         try:
             if len(group) == 1:
                 imgs, cs, ss = group[0].images, group[0].centers, \
@@ -393,25 +457,48 @@ class DynamicBatcher:
                 imgs = np.concatenate([g.images for g in group])
                 cs = np.concatenate([g.centers for g in group])
                 ss = np.concatenate([g.scales for g in group])
-            out = self.engine.run(imgs, cs, ss)   # async dispatch
+            with profiler.activate(ctx):
+                out = self.engine.run(imgs, cs, ss)   # async dispatch
         except BaseException as e:
             self._slots.release()
             for g in group:
                 g.future.set_exception(e)
-            return
+                _resolved(g, error=type(e).__name__)
+            out = None
+        t2 = time.perf_counter()
+        self._state_s["slot_wait"] += t1 - t0
+        self._state_s["dispatch"] += t2 - t1
         with self._lock:
-            self._n_batches += 1
-            self._n_instances += total
-        self._done_q.put((group, out))
+            self._queue_waits.extend(waits)
+            del self._queue_waits[:-1000]        # as the latencies' window
+            if out is not None:
+                self._n_batches += 1
+                self._n_instances += total
+        if ids:
+            for g in group:
+                if g.rid is not None:
+                    profiler.record("serve.queue", profiler.to_ns(g.t_submit),
+                                    profiler.to_ns(t0), (g.rid,),
+                                    thread=_REQUESTS)
+            profiler.record("serve.slot_wait", profiler.to_ns(t0),
+                            profiler.to_ns(t1), ids)
+            profiler.record("serve.dispatch", profiler.to_ns(t1),
+                            profiler.to_ns(t2), ids, span_id=sid,
+                            instances=total)
+        if out is not None:
+            self._done_q.put((group, out, ids))
+        return t2
 
     # -- completer -------------------------------------------------------------
 
     def _complete_loop(self):
+        t_free = time.perf_counter()
         while True:
             item = self._done_q.get()
             if item is _STOP:
                 return
-            group, (preds, maxvals) = item
+            t_got = time.perf_counter()
+            group, (preds, maxvals), ids = item
             try:
                 # blocks until the device finishes this batch
                 preds, maxvals = to_host(preds), to_host(maxvals)
@@ -419,6 +506,8 @@ class DynamicBatcher:
                 self._slots.release()
                 for g in group:
                     g.future.set_exception(e)
+                    _resolved(g, error=type(e).__name__)
+                t_free = time.perf_counter()
                 continue
             self._slots.release()
             now = time.perf_counter()
@@ -429,6 +518,24 @@ class DynamicBatcher:
                                      maxvals[off:off + g.n]))
                 off += g.n
                 lats.append(now - g.t_submit)
+                _resolved(g)
             with self._lock:
                 self._latencies.extend(lats)
                 del self._latencies[:-1000]      # keep the most recent 1000
+            t_done = time.perf_counter()
+            if ids:
+                profiler.record("serve.complete_idle", profiler.to_ns(t_free),
+                                profiler.to_ns(t_got))
+                profiler.record("serve.to_host", profiler.to_ns(t_got),
+                                profiler.to_ns(now), ids)
+                profiler.record("serve.fanout", profiler.to_ns(now),
+                                profiler.to_ns(t_done), ids)
+            t_free = t_done
+
+
+def _resolved(p: _Pending, **args):
+    """A traced request's ``serve.request`` span, as its future resolves."""
+    if p.rid is not None:
+        profiler.record("serve.request", profiler.to_ns(p.t_submit),
+                        profiler.now_ns(), (p.rid,), thread=_REQUESTS,
+                        instances=p.n, **args)

@@ -18,6 +18,13 @@ thread the engine owns: cuDNN keeps its algorithm choices per thread, and
 a thread that has not run a shape pays the choice again (seconds a batch
 shape under ``CUDNN.BENCHMARK``), so only a shared thread makes the
 warmed shapes warm for the requests. ``close`` stops it.
+
+Tracing (``utils/profiler.py``): a call made under a trace context (a
+traced batch's, or a profiled caller's) carries it to the engine's thread
+and records ``engine.call`` there, with its bucket. ``warmup`` records one
+``serve.warmup`` span per bucket, always, with the warm call
+(``serve.warmup.call``) and each timing repeat (``serve.warmup.repeat``)
+as its children.
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from rsgnet_tpu_torch.utils import profiler
 
 
 def _wait(out):
@@ -77,9 +86,19 @@ class ServingEngine:
         self._worker = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="serving-engine")
 
-    def _call(self, *args):
-        """``serve_fn(*args)`` on the engine's thread."""
-        return self._worker.submit(self._fn, *args).result()
+    def _call(self, *args, bucket=None):
+        """``serve_fn(*args)`` on the engine's thread, under the caller's
+        trace context if it has one."""
+        ctx = profiler.current()
+        if ctx is None:
+            return self._worker.submit(self._fn, *args).result()
+        return self._worker.submit(self._traced_call, ctx, bucket,
+                                   args).result()
+
+    def _traced_call(self, ctx, bucket, args):
+        with profiler.activate(ctx), profiler.span("engine.call",
+                                                   bucket=bucket):
+            return self._fn(*args)
 
     def close(self):
         """Stop the engine's thread after the calls already submitted.
@@ -134,7 +153,7 @@ class ServingEngine:
                 [centers, np.repeat(centers[:1], pad, axis=0)])
             scales = np.concatenate(
                 [scales, np.repeat(scales[:1], pad, axis=0)])
-        preds, maxvals = self._call(images, centers, scales)
+        preds, maxvals = self._call(images, centers, scales, bucket=b)
         with self._lock:
             self._bucket_calls[b] += 1
         return preds[:n], maxvals[:n]
@@ -153,18 +172,25 @@ class ServingEngine:
             raise ValueError("warmup needs image_shape to build dummy input")
         dtype = self.image_dtype or np.float32
         for b in (buckets or self.buckets):
-            imgs = np.zeros((b, *self.image_shape), dtype)
-            args = (imgs, np.full((b, 2), 32.0, np.float32),
-                    np.ones((b, 2), np.float32))
-            _wait(self._call(*args))
-            best = float("inf")
-            for _ in range(max(1, timing_repeats)):
+            with profiler.span("serve.warmup", setup=True, bucket=b):
+                self.bucket_cost[b] = self._warm(b, dtype, timing_repeats)
+
+    def _warm(self, b, dtype, timing_repeats):
+        """Warm bucket ``b``; returns the least of the timed calls."""
+        imgs = np.zeros((b, *self.image_shape), dtype)
+        args = (imgs, np.full((b, 2), 32.0, np.float32),
+                np.ones((b, 2), np.float32))
+        with profiler.span("serve.warmup.call", setup=True, bucket=b):
+            _wait(self._call(*args, bucket=b))
+        best = float("inf")
+        for _ in range(max(1, timing_repeats)):
+            with profiler.span("serve.warmup.repeat", setup=True, bucket=b):
                 t0 = time.perf_counter()
-                out = self._call(*args)
+                out = self._call(*args, bucket=b)
                 for t in out:
                     to_host(t)
                 best = min(best, time.perf_counter() - t0)
-            self.bucket_cost[b] = best
+        return best
 
     def stats(self) -> dict:
         with self._lock:
