@@ -172,27 +172,32 @@ def rot0_transform_t(center, scale, output_size, inv=False):
 
     center, scale: (N, 2) float32 tensors; output_size: static (w, h).
     Returns (N, 2, 3) float32 on the inputs' device. Every entry is a few
-    elementwise fp32 operations, so the CPU and the card give the same bits:
-    ``transform_preds`` maps keypoints back with it on the host (the eager
-    inference functions) and on the card (the exported artifact) alike.
-    ``get_affine_transform_t`` solves the same system by LU and agrees to
-    a few ulps.
+    elementwise fp32 operations (``rot0_scale_shift``), so the CPU and the
+    card give the same bits. ``get_affine_transform_t`` solves the same
+    system by LU and agrees to a few ulps.
     """
+    s, shift = rot0_scale_shift(center, scale, output_size, inv)
+    zero = torch.zeros_like(s)
+    return torch.stack([torch.stack([s, zero, shift[:, 0]], dim=-1),
+                        torch.stack([zero, s, shift[:, 1]], dim=-1)], dim=-2)
+
+
+def rot0_scale_shift(center, scale, output_size, inv=False):
+    """``rot0_transform_t`` as its parts: the scale s (N,) and the shift
+    (N, 2), so a point maps to ``s * p + shift``."""
     center = center.to(torch.float32)
     src_w = scale.to(torch.float32)[:, 0] * PIXEL_STD
-    half_w, half_h = float(output_size[0]) * 0.5, float(output_size[1]) * 0.5
+    # the output's half width and height, filled on the inputs' device
+    half = torch.full_like(center, float(output_size[0]) * 0.5)
+    half[:, 1].fill_(float(output_size[1]) * 0.5)
     # a tensor divisor: the card divides by a Python scalar as a product
     # with its reciprocal, an ulp from the host's quotient
     dst_w = torch.full_like(src_w, float(output_size[0]))
     if inv:
         s = src_w / dst_w
-        tx, ty = center[:, 0] - s * half_w, center[:, 1] - s * half_h
-    else:
-        s = dst_w / src_w
-        tx, ty = half_w - s * center[:, 0], half_h - s * center[:, 1]
-    zero = torch.zeros_like(s)
-    return torch.stack([torch.stack([s, zero, tx], dim=-1),
-                        torch.stack([zero, s, ty], dim=-1)], dim=-2)
+        return s, center - s[:, None] * half
+    s = dst_w / src_w
+    return s, half - s[:, None] * center
 
 
 def affine_apply(pts, t):
@@ -207,12 +212,11 @@ def affine_apply(pts, t):
 def transform_preds(coords, center, scale, output_size):
     """Heatmap-space coords (N, K, 2) -> image space.
 
-    center, scale: (N, 2) float32 tensors, best on the CPU: the transforms
-    (``rot0_transform_t``) are computed where they lie and then copied to
-    ``coords``' device, so the device stream never waits on the host.
-    output_size: heatmap (w, h).
+    center, scale: (N, 2) float32 tensors on ``coords``' device.
+    output_size: heatmap (w, h). The rot-0 transform's cross terms are 0,
+    so each coordinate is ``s * p + shift`` (``rot0_scale_shift``): for
+    finite points the bits ``affine_apply`` gives with the 2x3 matrix, in
+    nine elementwise kernels on the card instead of twenty.
     """
-    trans = rot0_transform_t(center, scale, output_size, inv=True)
-    if coords.is_cuda and not trans.is_cuda:
-        trans = trans.pin_memory().to(coords.device, non_blocking=True)
-    return affine_apply(coords, trans[:, None])
+    s, shift = rot0_scale_shift(center, scale, output_size, inv=True)
+    return coords * s[:, None, None] + shift[:, None]

@@ -18,8 +18,11 @@ implementation gives the output shapes from symbolic input shapes, so
 exported program launches the kernel where the eager path does. The blur
 size and ``return_peaks`` are static arguments.
 
-``dark_decode.launches`` counts kernel launches; it is raised by one right
-after each successful launch and nowhere else.
+``dark_decode.launches`` counts the kernel's launches that ran: it is raised by
+one right after each successful launch and nowhere else, except inside a
+CUDA graph's capture, where the launch runs only at the graph's replays:
+the capture adds nothing, and each replay adds the launches its graph
+holds (``ops/cuda/__init__.py``: ``count_launch``).
 
 The kernel runs one block of ``BLOCK_THREADS`` per map and keeps one copy
 of the map in shared memory (``shared_bytes``).
@@ -31,6 +34,7 @@ import functools
 
 import torch
 
+from rsgnet_tpu_torch.ops.cuda import count_launch
 from rsgnet_tpu_torch.ops.decode import (_cv2_gaussian_kernel_1d,
                                          dark_decode_reference)
 
@@ -135,7 +139,7 @@ def _dark_decode_cuda(heatmaps, blur_kernel, return_peaks):
     if err != 0:
         raise RuntimeError(f"dark_decode kernel launch failed: CUDA error "
                            f"{err}")
-    dark_decode.launches += 1
+    count_launch(dark_decode)
     return coords, maxvals, peaks
 
 

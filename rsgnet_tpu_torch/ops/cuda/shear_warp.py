@@ -18,8 +18,11 @@ On a CPU tensor the plain version,
 gives the output shape from symbolic input shapes, so ``torch.export``
 records one call of the operator. The output size is a static argument.
 
-``shear_warp.launches`` counts kernel launches; it is raised by one right
-after each successful launch and nowhere else.
+``shear_warp.launches`` counts the kernel's launches that ran: it is raised by
+one right after each successful launch and nowhere else, except inside a
+CUDA graph's capture, where the launch runs only at the graph's replays:
+the capture adds nothing, and each replay adds the launches its graph
+holds (``ops/cuda/__init__.py``: ``count_launch``).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import functools
 
 import torch
 
+from rsgnet_tpu_torch.ops.cuda import count_launch
 from rsgnet_tpu_torch.ops.shear_warp import (ShearPositions,
                                              shear_warp_reference)
 
@@ -113,7 +117,7 @@ def _shear_warp_cuda(images, swap, p_a, s_a, p_b, s_b, out_h, out_w):
     if err != 0:
         raise RuntimeError(f"shear_warp kernel launch failed: CUDA error "
                            f"{err}")
-    shear_warp.launches += 1
+    count_launch(shear_warp)
     return out
 
 

@@ -147,7 +147,7 @@ def get_final_preds(heatmaps, center, scale, *, post_process=True,
 
     DARK replaces the quarter-offset when enabled; ``post_process=False`` is
     the raw-argmax ablation and bypasses DARK too. center/scale: (N, 2)
-    float32 tensors (best on the CPU, see ``transform_preds``).
+    float32 tensors on the heatmaps' device.
     Returns preds (N, K, 2) in image coords and maxvals (N, K, 1).
     """
     use_dark = use_dark and post_process

@@ -38,12 +38,16 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 def normalize_image(image: torch.Tensor, mean=IMAGENET_MEAN,
                     std=IMAGENET_STD, channels_first=False) -> torch.Tensor:
     """(pix/255 - mean) / std on a float32 channels-last tensor, or on a
-    (N, C, H, W) one with ``channels_first``. The constants are filled on
-    the image's device: a host tensor copied to the card would make the
-    host wait for the stream."""
+    (N, C, H, W) one with ``channels_first``. ``mean`` and ``std`` are
+    values, filled on the image's device at each call (a host tensor
+    copied to the card would make the host wait for the stream), or
+    float32 tensors already there (``core/inference.py::DevicePipeline``
+    keeps them as buffers, so its calls fill none)."""
     shape = (-1, 1, 1) if channels_first else (-1,)
 
     def const(values):
+        if isinstance(values, torch.Tensor):
+            return values.reshape(shape)
         return torch.stack([torch.full((), v, dtype=torch.float32,
                                        device=image.device)
                             for v in values]).reshape(shape)
@@ -165,7 +169,8 @@ def resolve_eval_warp(warp: str, name: str = "warp") -> str:
 
 
 def crop_and_normalize(images: torch.Tensor, trans: torch.Tensor, out_size,
-                       flip=None, warp="separable") -> torch.Tensor:
+                       flip=None, warp="separable", mean=IMAGENET_MEAN,
+                       std=IMAGENET_STD) -> torch.Tensor:
     """The eval crop: warp -> (optional horizontal flip) -> normalize.
 
     images: (N, H, W, 3) uint8 or float32 source canvases; trans: (N, 2, 3)
@@ -176,7 +181,7 @@ def crop_and_normalize(images: torch.Tensor, trans: torch.Tensor, out_size,
     "pallas" need a square source and take "separable" otherwise (all
     three are exact-footprint at rot 0, the only case eval produces); both
     run the shear warp's CUDA kernel on a CUDA tensor and its plain version
-    on a CPU tensor.
+    on a CPU tensor. ``mean``, ``std``: as ``normalize_image`` takes them.
 
     Returns (N, 3, out_h, out_w) float32 normalized model inputs.
     """
@@ -196,7 +201,7 @@ def crop_and_normalize(images: torch.Tensor, trans: torch.Tensor, out_size,
         flip = torch.as_tensor(flip, dtype=torch.bool, device=crops.device)
         crops = torch.where(flip[:, None, None, None],
                             torch.flip(crops, dims=(3,)), crops)
-    return normalize_image(crops, channels_first=True)
+    return normalize_image(crops, mean, std, channels_first=True)
 
 
 def warp_affine_np(img, trans, out_size):

@@ -25,6 +25,11 @@ and records ``engine.call`` there, with its bucket. ``warmup`` records one
 ``serve.warmup`` span per bucket, always, with the warm call
 (``serve.warmup.call``) and each timing repeat (``serve.warmup.repeat``)
 as its children.
+
+On a card the port's inference function captures a bucket's CUDA graphs
+at its second call, the first timing repeat, so ``bucket_cost`` holds
+replays and every request's call replays (``stats()``'s
+``graph_replays``).
 """
 from __future__ import annotations
 
@@ -193,7 +198,14 @@ class ServingEngine:
         return best
 
     def stats(self) -> dict:
+        """Calls by bucket, and the function's own counters where it keeps
+        them: the port's inference functions count ``graph_replays``
+        (calls replayed from CUDA graphs) and ``eager_calls``, warm-up
+        included."""
         with self._lock:
             calls = dict(self._bucket_calls)
-        return {"bucket_calls": calls,
-                "batches": int(sum(calls.values()))}
+        out = {"bucket_calls": calls, "batches": int(sum(calls.values()))}
+        for k in ("graph_replays", "eager_calls"):
+            if hasattr(self._fn, k):
+                out[k] = int(getattr(self._fn, k))
+        return out

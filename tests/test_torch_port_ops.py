@@ -130,6 +130,22 @@ def test_transform_preds():
     np.testing.assert_allclose(ours, theirs, rtol=1e-6, atol=1e-4)
 
 
+def test_transform_preds_gives_the_matrix_s_bits():
+    """``transform_preds`` maps points as ``s * p + shift`` and gives the
+    bits of ``affine_apply`` with the 2x3 matrix: its cross terms are 0."""
+    centers, scales = _boxes()
+    rng = np.random.RandomState(2)
+    for scale in (1.0, 1e15):
+        coords = torch.from_numpy((rng.uniform(-10, 90, (len(centers), 17, 2))
+                                   * scale).astype(np.float32))
+        coords[0, 0] = 0.0
+        c, s = torch.from_numpy(centers), torch.from_numpy(scales)
+        matrix = taff.rot0_transform_t(c, s, (72, 96), inv=True)
+        torch.testing.assert_close(
+            taff.transform_preds(coords, c, s, (72, 96)),
+            taff.affine_apply(coords, matrix[:, None]), rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("aspect", [0.75, 1.0])
 def test_host_geometry_exact(aspect):
     box = np.array([30.5, 12.0, 80.0, 150.0], np.float32)
