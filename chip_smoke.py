@@ -11,6 +11,7 @@ Phases (any failure raises and the script exits nonzero):
    shared memory and maps per SM
    of the blur-11 instantiations) against its plain PyTorch version on
    synthetic peaks at the serving shape (64, 17, 96, 72), blur 11 and 3,
+   and at ViTPose-H's (64, 17, 64, 48), blur 11,
    plus edge cases (zero map, border peak, tie, N*K no block multiple) and
    the ten hard cases of ``rsgnet_tpu_torch/data/synthetic.py::HARD_DARK``
    (blur 1/5/31, maps smaller than the blur, a plateau tie over rows,
@@ -4058,6 +4059,11 @@ def card_and_dark_phases(torch):
                                       dark_decode_reference, hm64, blur)
         log(f"kernel vs plain (64, 17, 96, 72) blur {blur}: peaks equal, "
             f"maxvals bit-equal, max |coord diff| {err64[blur]:.3e}")
+    # ViTPose-H's maps at 256x192 (the vitpose_h.infer_b64 cell's B1 shape)
+    hm_vit = torch.from_numpy(synthetic_heatmaps(64, 17, 64, 48, 2)).to(dev)
+    kernel_vs_plain(torch, dark_decode, dark_decode_reference, hm_vit, 11)
+    log("kernel vs plain (64, 17, 64, 48) blur 11: peaks equal, maxvals "
+        "and coords bit-equal")
     edge = np.zeros((3, 7, 96, 72), np.float32)     # N*K = 21
     edge[0, 1, 1, 1] = 1.0                           # border peak
     edge[1, 2] = -1.0                                # maxval <= 0

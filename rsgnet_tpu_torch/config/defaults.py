@@ -6,7 +6,9 @@ experiment YAMLs under ``experiments/`` load unchanged: ``load_config``
 merges defaults, an experiment YAML and ``KEY VALUE`` overrides.
 
 Topology is data: MODEL.EXTRA carries the STAGE2/3/4 dicts that fully
-determine the HRNet variant (W32/W48 are pure config).
+determine the HRNet variant (W32/W48 are pure config). MODEL.VIT, the
+ViT backbone of ``pose_vit``, is the port's own: the JAX package has no
+such model or section.
 
 Keys that select an execution strategy compute the same function as their
 default. MODEL.S2D_STEM, MODEL.FUSE_MERGED and TRAIN.REMAT are read
@@ -76,6 +78,42 @@ class RSGConfig:
 
 
 @dataclass
+class VitConfig:
+    """The plain ViT backbone of ``pose_vit`` (ViTPose, arXiv 2204.12484):
+    a patch-embedding conv (PATCH_SIZE, stride PATCH_SIZE, PATCH_PADDING),
+    DEPTH pre-LN blocks of NUM_HEADS-head attention and an MLP of
+    MLP_RATIO x EMBED_DIM, LayerNorm eps LN_EPS. Defaults: ViTPose-B."""
+    EMBED_DIM: int = 768
+    DEPTH: int = 12
+    NUM_HEADS: int = 12
+    MLP_RATIO: int = 4
+    PATCH_SIZE: int = 16
+    PATCH_PADDING: int = 2
+    QKV_BIAS: bool = True
+    LN_EPS: float = 1e-6
+
+
+def check_vit(vit: VitConfig):
+    """Raise ``ValueError`` on a MODEL.VIT section no ViT can be built
+    from."""
+    for key in ("EMBED_DIM", "DEPTH", "NUM_HEADS", "MLP_RATIO",
+                "PATCH_SIZE"):
+        v = getattr(vit, key)
+        if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+            raise ValueError(f"MODEL.VIT.{key}={v!r}: a positive integer")
+    if not isinstance(vit.PATCH_PADDING, int) or vit.PATCH_PADDING < 0:
+        raise ValueError(f"MODEL.VIT.PATCH_PADDING={vit.PATCH_PADDING!r}: "
+                         f"a non-negative integer")
+    if vit.EMBED_DIM % vit.NUM_HEADS:
+        raise ValueError(f"MODEL.VIT.EMBED_DIM={vit.EMBED_DIM} is not a "
+                         f"multiple of NUM_HEADS={vit.NUM_HEADS}")
+    if not isinstance(vit.QKV_BIAS, bool):
+        raise ValueError(f"MODEL.VIT.QKV_BIAS={vit.QKV_BIAS!r}: a bool")
+    if not isinstance(vit.LN_EPS, (int, float)) or not 0 < vit.LN_EPS < 1:
+        raise ValueError(f"MODEL.VIT.LN_EPS={vit.LN_EPS!r}: in (0, 1)")
+
+
+@dataclass
 class ModelConfig:
     NAME: str = "pose_hrnet"
     INIT_WEIGHTS: bool = True
@@ -90,6 +128,7 @@ class ModelConfig:
     FUSE_MERGED: bool = False        # exchange fusion as merged convs
     EXTRA: ModelExtra = field(default_factory=_w32_extra)
     RSG: RSGConfig = field(default_factory=RSGConfig)
+    VIT: VitConfig = field(default_factory=VitConfig)     # pose_vit
 
 
 @dataclass
@@ -315,6 +354,7 @@ def load_config(yaml_path: Optional[str] = None,
             update_config(cfg, yaml.safe_load(f))
     if overrides:
         update_config(cfg, overrides)
+    check_vit(cfg.MODEL.VIT)
     return cfg
 
 
@@ -382,6 +422,23 @@ def tiny_resnet() -> Config:
     cfg.MODEL.EXTRA.NUM_DECONV_FILTERS = (16, 16, 16)
     cfg.MODEL.IMAGE_SIZE = (64, 96)
     cfg.MODEL.HEATMAP_SIZE = (16, 24)
+    cfg.DTYPE = "float32"
+    return cfg
+
+
+def tiny_vit() -> Config:
+    """Miniature pose_vit for fast CPU tests: the ViTPose module graph
+    (patch embedding, position table, pre-LN blocks, last norm, two
+    deconvs, 1x1 conv) at width 64, depth 2, 4 heads, 16-filter deconvs
+    and 64x48 crops (a 4x3 token grid), in float32."""
+    cfg = Config()
+    cfg.MODEL.NAME = "pose_vit"
+    cfg.MODEL.IMAGE_SIZE = (48, 64)
+    cfg.MODEL.HEATMAP_SIZE = (12, 16)
+    cfg.MODEL.VIT = VitConfig(EMBED_DIM=64, DEPTH=2, NUM_HEADS=4)
+    cfg.MODEL.EXTRA.NUM_DECONV_LAYERS = 2
+    cfg.MODEL.EXTRA.NUM_DECONV_FILTERS = (16, 16)
+    cfg.MODEL.EXTRA.NUM_DECONV_KERNELS = (4, 4)
     cfg.DTYPE = "float32"
     return cfg
 

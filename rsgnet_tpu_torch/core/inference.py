@@ -36,10 +36,13 @@ Tracing (``utils/profiler.py``): an eager call made under a trace context
 ``pipeline.call`` and, inside ``DevicePipeline``, a span per stage
 (``pipeline.crop`` or ``pipeline.normalize``, ``pipeline.forward``, twice
 under flip-test, ``pipeline.flip``: the input's flip, then ``flip_back``
-and the average, ``pipeline.decode``), each with CUDA events whose device
-milliseconds the recorder reads later. The first call of each input shape
-records ``pipeline.first_call``, always (cuDNN's autotuning of the shape
-happens in it; on a card it waits for the device). The decision is made
+and the average, ``pipeline.decode``; a model that names its parts runs
+a stage a part in place of each ``pipeline.forward``: ``vit.embed``,
+``vit.blocks``, ``vit.head`` for ``pose_vit``), each with CUDA events
+whose device milliseconds the recorder reads later. The first call of
+each input shape records ``pipeline.first_call``, always (cuDNN's
+autotuning of the shape happens in it; on a card it waits for the
+device). The decision is made
 in the eager wrapper, outside the module that ``torch.export`` captures,
 so the artifact holds none of it.
 
@@ -135,18 +138,32 @@ def configure_cudnn(cfg: Config):
     configure_precision()
 
 
+def forward_in_stages(model, images, stage=profiler.no_stage):
+    """``model(images)``, in one ``pipeline.forward`` stage, or in a stage
+    a part where the model names its parts (``model.parts()``: (span
+    name, callable) in order, as ``models/pose_vit.py`` does)."""
+    parts = getattr(model, "parts", None)
+    if parts is None:
+        with stage("pipeline.forward"):
+            return model(images)
+    x = images
+    for name, part in parts():
+        with stage(name):
+            x = part(x)
+    return x
+
+
 def heatmaps_with_flip_test(model, images, cfg: Config, perm,
                             stage=profiler.no_stage):
     """Model forward (+ flip-test average). images: (N, 3, H, W).
-    ``stage(name)`` wraps each step (``profiler.stages``)."""
-    with stage("pipeline.forward"):
-        output = model(images)
+    ``stage(name)`` wraps each step (``profiler.stages``); the forwards
+    run as ``forward_in_stages``."""
+    output = forward_in_stages(model, images, stage)
     if not cfg.TEST.FLIP_TEST:
         return output
     with stage("pipeline.flip"):
         images = torch.flip(images, dims=(3,))
-    with stage("pipeline.forward"):
-        flipped = model(images)
+    flipped = forward_in_stages(model, images, stage)
     with stage("pipeline.flip"):
         flipped = flip_back(flipped, perm, shift=cfg.TEST.SHIFT_HEATMAP)
         return (output + flipped) * 0.5

@@ -10,6 +10,8 @@ from rsgnet_tpu_torch.config.defaults import Config
 from rsgnet_tpu_torch.models.hrnet import BatchNorm, PoseHighResolutionNet
 from rsgnet_tpu_torch.models.pose_resnet import PoseResNet
 from rsgnet_tpu_torch.models.pose_rsgnet import PoseRSGNet
+from rsgnet_tpu_torch.models.pose_vit import PoseViT
+from rsgnet_tpu_torch.models.vit import VisionTransformer
 
 # flax lecun_normal: a normal truncated at +-2 std, rescaled so the
 # truncated distribution has variance 1 / fan_in
@@ -23,8 +25,15 @@ def get_pose_net(cfg: Config) -> nn.Module:
     `pose_resnet` -> SimpleBaseline ResNet backbone + deconv head.
     `pose_rsgnet` -> HRNet backbone + relation/skeleton-graph head
                      (also selected when MODEL.RSG.ENABLED is set).
+    `pose_vit`    -> ViTPose: plain ViT backbone (MODEL.VIT) + deconv head.
     """
     name = cfg.MODEL.NAME
+    if name == "pose_vit":
+        if cfg.MODEL.RSG.ENABLED:
+            raise ValueError("MODEL.RSG.ENABLED requires the HRNet backbone's"
+                             " high-res features; unset it or use "
+                             "MODEL.NAME=pose_rsgnet")
+        return PoseViT(cfg).eval()
     if name == "pose_resnet":
         if cfg.MODEL.RSG.ENABLED:
             raise ValueError("MODEL.RSG.ENABLED requires the HRNet backbone's"
@@ -43,11 +52,21 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded init with the flax defaults the JAX package starts from:
     lecun-normal conv, transposed-conv and Dense kernels (truncated at 2
     std), zero biases, BatchNorm scale 1, bias 0, running mean 0, running
-    var 1. Values are drawn in fp32 on the CPU from one ``torch.Generator`` in parameter
+    var 1; LayerNorm scale 1, bias 0; a ViT's position table normal with
+    std 0.02 (ViTPose's ``trunc_normal_``, whose bounds of +-2 lie 100 std
+    out). Values
+    are drawn in fp32 on the CPU from one ``torch.Generator`` in module
     order, then cast into each parameter's dtype and device."""
     gen = torch.Generator().manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, BatchNorm):
+        if isinstance(mod, VisionTransformer):
+            t = torch.empty(mod.pos_embed.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(t, 0.0, 0.02, generator=gen)
+            mod.pos_embed.copy_(t)
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, BatchNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
             mod.running_mean.zero_()
@@ -69,4 +88,4 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
 
 
 __all__ = ["get_pose_net", "init_weights", "PoseHighResolutionNet",
-           "PoseResNet", "PoseRSGNet"]
+           "PoseResNet", "PoseRSGNet", "PoseViT"]

@@ -214,7 +214,10 @@ def load_weights(cfg, model, model_file: str):
     - a torch file holding reference ``pose_hrnet`` or ``pose_resnet``
       names (``conv1.weight`` ...), optionally under ``state_dict`` and
       with ``module.`` prefixes -> the backbone from it, the rest (the RSG
-      head) from the seeded init.
+      head) from the seeded init;
+    - for ``pose_vit``, a torch file holding a released ViTPose model's
+      names (``backbone.pos_embed`` ...) -> every tensor of it, strictly
+      (``torch_convert.py::vit_key_map``); a msgpack file raises.
 
     Any other file raises ``ValueError``."""
     from rsgnet_tpu_torch.models import init_weights
@@ -226,6 +229,10 @@ def load_weights(cfg, model, model_file: str):
         head = f.read(1)
     own = set(model.state_dict())
     if looks_like_msgpack_map(head):
+        if cfg.MODEL.NAME == "pose_vit":
+            raise ValueError(f"{model_file}: a msgpack file holds the JAX "
+                             f"package's weights, and the JAX package has "
+                             f"no pose_vit model")
         from rsgnet_tpu_torch.utils.convert import (flatten_variables,
                                                     state_dict_from_flax)
         with open(model_file, "rb") as f:
@@ -251,6 +258,9 @@ def load_weights(cfg, model, model_file: str):
                                                       convert_state_dict,
                                                       strip_module_prefix)
     ref = strip_module_prefix(raw) if isinstance(raw, dict) else {}
+    if cfg.MODEL.NAME == "pose_vit" and "backbone.pos_embed" in ref:
+        model.load_state_dict(convert_state_dict(cfg, ref), strict=True)
+        return model
     if "conv1.weight" in ref and "final_layer.weight" in ref:
         init_weights(model, seed=0)
         sd = convert_state_dict(cfg, ref, backbone_prefix(model))
@@ -258,5 +268,5 @@ def load_weights(cfg, model, model_file: str):
         return model
     raise ValueError(f"{model_file}: neither this package's state dict "
                      f"(bare or under 'model'), nor a flax msgpack "
-                     f"checkpoint, nor a reference pose_hrnet or pose_resnet "
-                     f"state dict")
+                     f"checkpoint, nor a reference pose_hrnet, pose_resnet "
+                     f"or ViTPose state dict")

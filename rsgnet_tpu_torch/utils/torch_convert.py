@@ -1,5 +1,6 @@
-"""Reference ``pose_hrnet`` and ``pose_resnet`` checkpoints -> this
-package's model (the port of the JAX package's ``utils/torch_convert.py``).
+"""Reference ``pose_hrnet``, ``pose_resnet`` and ViTPose checkpoints -> this
+package's model (the port of the JAX package's ``utils/torch_convert.py``;
+the ViTPose map, ``vit_key_map``, is the port's own).
 
 Released HRNet-family checkpoints name their tensors ``conv1``/``bn1``,
 ``layer1.{b}``, ``transition{t}.{i}``, ``stage{s}.{m}.branches`` /
@@ -164,9 +165,48 @@ def resnet_key_map(cfg: Config) -> List[Tuple[str, Tuple[str, ...], str]]:
     return out
 
 
+def vit_key_map(cfg: Config) -> List[Tuple[str, str]]:
+    """[(public ViTPose name, this package's name)] for every ``pose_vit``
+    tensor. The released checkpoints name the backbone
+    ``backbone.patch_embed.proj``, ``backbone.pos_embed``,
+    ``backbone.blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,
+    mlp.fc2}`` and ``backbone.last_norm``, the decoder
+    ``keypoint_head.deconv_layers.{3i}`` (a transposed conv) and
+    ``.{3i+1}`` (its BatchNorm) and ``keypoint_head.final_layer``. Here
+    the patch conv is ``backbone.patch_embed`` itself and the decoder
+    ``deconv{i}.conv`` / ``.bn`` and ``final_layer``; every other name is
+    the same. The whole model is mapped: no prefix is added."""
+    vit, extra = cfg.MODEL.VIT, cfg.MODEL.EXTRA
+    out = [("backbone.patch_embed.proj.weight", "backbone.patch_embed.weight"),
+           ("backbone.patch_embed.proj.bias", "backbone.patch_embed.bias"),
+           ("backbone.pos_embed", "backbone.pos_embed")]
+    linears = [("attn.qkv", vit.QKV_BIAS), ("attn.proj", True),
+               ("mlp.fc1", True), ("mlp.fc2", True)]
+    for i in range(vit.DEPTH):
+        names = [f"norm1.{t}" for t in ("weight", "bias")]
+        names += [f"norm2.{t}" for t in ("weight", "bias")]
+        for lin, bias in linears:
+            names += [f"{lin}.weight"] + ([f"{lin}.bias"] if bias else [])
+        out += [(f"backbone.blocks.{i}.{n}",) * 2 for n in names]
+    out += [(f"backbone.last_norm.{t}",) * 2 for t in ("weight", "bias")]
+    for i in range(extra.NUM_DECONV_LAYERS):
+        base = "keypoint_head.deconv_layers"
+        out.append((f"{base}.{3 * i}.weight", f"deconv{i}.conv.weight"))
+        if extra.DECONV_WITH_BIAS:
+            out.append((f"{base}.{3 * i}.bias", f"deconv{i}.conv.bias"))
+        out += [(f"{base}.{3 * i + 1}.{t}", f"deconv{i}.bn.{t}")
+                for t in ("weight", "bias", "running_mean", "running_var")]
+    out += [(f"keypoint_head.final_layer.{t}", f"final_layer.{t}")
+            for t in ("weight", "bias")]
+    return out
+
+
 def key_map(cfg: Config) -> List[Tuple[str, str]]:
     """[(reference name, this package's name without the backbone
-    prefix)] for cfg's model family."""
+    prefix)] for cfg's model family (``pose_vit``: the whole model's
+    names, ``vit_key_map``)."""
+    if cfg.MODEL.NAME == "pose_vit":
+        return vit_key_map(cfg)
     table = (resnet_key_map(cfg) if cfg.MODEL.NAME == "pose_resnet"
              else hrnet_key_map(cfg))
     return [(tname, ".".join((*fpath[:-1], _LEAF[fpath[-1]])))
@@ -174,9 +214,11 @@ def key_map(cfg: Config) -> List[Tuple[str, str]]:
 
 
 def backbone_prefix(model) -> str:
-    """"backbone." for a model with a backbone submodule (PoseRSGNet),
-    else ""."""
-    return "backbone." if hasattr(model, "backbone") else ""
+    """"backbone." for a model with an HRNet backbone submodule
+    (PoseRSGNet), else "" (a ViTPose map names the whole model)."""
+    from rsgnet_tpu_torch.models.pose_vit import PoseViT
+    return ("backbone." if hasattr(model, "backbone")
+            and not isinstance(model, PoseViT) else "")
 
 
 def convert_state_dict(cfg: Config, torch_sd: Dict[str, torch.Tensor],
