@@ -6,9 +6,9 @@
 Phases (any failure raises and the script exits nonzero):
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-2. both kernels built from ``rsgnet_tpu_torch/csrc`` at once (one ``nvcc``
-   each); the hand-written CUDA DARK kernel (ptxas registers and spills,
-   shared memory and maps per SM
+2. the three kernels built from ``rsgnet_tpu_torch/csrc`` at once (one
+   ``nvcc`` each); the hand-written CUDA DARK kernel (ptxas registers and
+   spills, shared memory and maps per SM
    of the blur-11 instantiations) against its plain PyTorch version on
    synthetic peaks at the serving shape (64, 17, 96, 72), blur 11 and 3,
    and at ViTPose-H's (64, 17, 64, 48), blur 11,
@@ -19,6 +19,19 @@ Phases (any failure raises and the script exits nonzero):
    raw peak, 64x64, N*K = 21), a 16-byte-misaligned batch and an odd width
    (the kernel's 4-byte path): peaks identical, maxvals and coords
    bit-equal;
+34. (run after phase 2) the ConvBN epilogue kernel
+   (``csrc/convbn_epilogue.cu``) against its plain version at W48 @
+   384x288's plane sizes, 27,648 px (the stem at 192x144) down to 108 px
+   (branch 4 at 12x9), bf16 and fp32, alone, with ReLU and with a residual
+   and ReLU, and at ViTPose-H's decoder's channels-last (256, 32, 24) and
+   (256, 64, 48) with ReLU: within 8 fp32 ulps of the terms' magnitudes,
+   one launch a call, the vector width it picks logged (read from the
+   kernel's name in a trace); then held and timed at the largest planes
+   at a batch of 64, the stem's (64, 64, 192, 144) bf16 with ReLU and
+   layer1's block tail (64, 256, 96, 72) with a residual and ReLU (CUDA
+   events, L2 flushed, mean of 20), beside its byte bound at 3.35 TB/s and
+   the plain chain's time (upcast, cuDNN's inference BatchNorm, add,
+   ReLU);
 3. a small-input reference: the tiny float32 RSGNet through the inference
    function on the card and on the CPU, same weights: preds atol 1e-2 px,
    maxvals atol 1e-4;
@@ -27,9 +40,11 @@ Phases (any failure raises and the script exits nonzero):
    at full width in bf16 with a seeded init, warms buckets 1/8/32/64 and
    serves HTTP on 127.0.0.1; concurrent /v1/predict and /v1/predict_image
    requests must come back finite and of the right shape, and the kernel's
-   launch count must equal the engine's batch count for that window; the
+   launch count must equal the engine's batch count for that window, the
+   ConvBN epilogue's 293 a forward (586 a flip-test batch); the
    kernel's peaks and maxvals on one served batch's heatmaps must equal the
-   plain version's;
+   plain version's, and the epilogue on each of that batch's 586
+   BatchNorm inputs must lie within phase 34's bound of its plain version;
 5. timings with CUDA events: the kernel and its plain version at buckets
    1, 8, 32 and 64 (L2 flushed before each launch), each beside its bound,
    the share of the bound it reaches and the time of a plain read of the
@@ -70,7 +85,8 @@ Phases (any failure raises and the script exits nonzero):
    a seeded init, batch 24 (the YAML's), pipeline "device" (uint8 canvases
    to the card, separable crop, flip-test, DARK, canvas un-mapping,
    rescoring, device OKS-NMS, COCOeval): the AP table must be finite, the
-   DARK kernel must run once per eval batch and the shear warp never. Then
+   DARK kernel must run once per eval batch, the ConvBN epilogue 586 times
+   (293 BatchNorms a forward, flip-test) and the shear warp never. Then
    ``TEST.WARP=shear``: the shear-warp kernel runs once per eval batch;
    with the same seeded weights in fp32 every prediction agrees with the
    separable crop's within 1 px (in bf16 the random-weight model is
@@ -207,7 +223,8 @@ Phases (any failure raises and the script exits nonzero):
    DARK, seeded init) in a subprocess writes a ``.pt2`` with a symbolic
    batch; ``serve --artifact`` loads it, warms buckets 1/8/32/64 and
    answers concurrent /v1/predict requests over HTTP (finite, right
-   shapes), DARK launched once per engine batch and the shear warp never;
+   shapes), DARK launched once per engine batch, the ConvBN epilogue 586
+   times a batch and the shear warp never;
    in this process the artifact at buckets 2 and 32 launches DARK once per
    call, equals the unexported ``DevicePipeline`` bitwise and
    ``make_inference_fn`` on the same weights per ``preds_agree``
@@ -296,7 +313,10 @@ Phases (any failure raises and the script exits nonzero):
    phases 31-32, ``profilers_launches``: each tool's launches over its
    rows; per rank in phase 33, ``nccl_fit_launches_per_rank`` and
    ``nccl_test_cli_launches_per_rank``, and the shear warp's in its train
-   CLI, ``nccl_train_cli_launches_per_rank``, all null on one card),
+   CLI, ``nccl_train_cli_launches_per_rank``, all null on one card; the
+   ConvBN epilogue with its launches in phase 4's serving, phase 10's
+   ``validate`` and phase 24's artifacts, each held to 293 a W48 forward,
+   and phase 34's times),
    the card line, and last the
    ``{"ok": true, "device": {...}}`` line.
 
@@ -316,6 +336,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -750,8 +771,9 @@ def eval_holds(torch, cfg, model, ds, batch, dev):
 
 def eval_phases(torch, cfg, root, card, dev, per_image):
     """Phases 10 and 11 on a synthetic COCO set written under ``root``.
-    Returns the eval-path launches of DARK on the main path's ``validate``
-    run and of the shear warp under TEST.WARP=shear."""
+    Returns the eval-path launches of DARK and of the ConvBN epilogue on
+    the main path's ``validate`` run and of the shear warp under
+    TEST.WARP=shear."""
     from rsgnet_tpu_torch.core.inference import make_e2e_fn, to_device
     from rsgnet_tpu_torch.core.validate import (collect_predictions,
                                                 validate)
@@ -759,6 +781,7 @@ def eval_phases(torch, cfg, root, card, dev, per_image):
     from rsgnet_tpu_torch.data.loader import BatchLoader
     from rsgnet_tpu_torch.data.synthetic import write_synthetic_coco
     from rsgnet_tpu_torch.models import get_pose_net, init_weights
+    from rsgnet_tpu_torch.ops.cuda.convbn_epilogue import convbn_epilogue
     from rsgnet_tpu_torch.ops.cuda.dark_decode import dark_decode
     from rsgnet_tpu_torch.ops.cuda.shear_warp import shear_warp
     from rsgnet_tpu_torch.ops.nms_native import available as native_nms
@@ -787,20 +810,25 @@ def eval_phases(torch, cfg, root, card, dev, per_image):
         raise AssertionError("the W48 YAML no longer evaluates with DARK, "
                              "batch 24, the separable crop and device NMS")
     t0 = time.perf_counter()
-    dark_decode.launches = shear_warp.launches = 0    # main path starts here
+    # main path starts here
+    dark_decode.launches = shear_warp.launches = convbn_epilogue.launches = 0
     name_value, ap = validate(cfg, ds, model, device="cuda")
     torch.cuda.synchronize()
     dark_n, shear_n = dark_decode.launches, shear_warp.launches  # ends here
+    bn_n = convbn_epilogue.launches
     log(f"validate (first pass, build of the eval path included) in "
         f"{time.perf_counter() - t0:.1f} s: AP table " + ", ".join(
             f"{k} {v:.4f}" for k, v in name_value.items())
-        + f"; dark_decode launches {dark_n}, shear_warp launches {shear_n}")
+        + f"; dark_decode launches {dark_n}, shear_warp launches {shear_n}, "
+        f"ConvBN epilogue launches {bn_n}")
     if not all(np.isfinite(v) for v in name_value.values()):
         raise AssertionError(f"non-finite AP table {dict(name_value)}")
     if dark_n != n_batches or shear_n != 0:
         raise AssertionError(f"dark_decode launches {dark_n} != eval "
                              f"batches {n_batches}, or the shear warp ran "
                              f"({shear_n})")
+    epilogue_launches_hold("validate", bn_n,
+                           n_batches * (2 if cfg.TEST.FLIP_TEST else 1))
 
     # warm second pass on a fresh dataset object (cold decode cache):
     # phase 11's instances/s, and the separable run's predictions
@@ -977,7 +1005,7 @@ def eval_phases(torch, cfg, root, card, dev, per_image):
     # 640 px, up to ~1e-2 on the 0-255 scale; a wrong map is off by tens
     if warp_err > 5e-2:
         raise AssertionError(f"separable crop vs grid_sample: {warp_err}")
-    return dark_n, eval_shear
+    return dark_n, eval_shear, bn_n
 
 
 def max_state_diff(torch, a, b):
@@ -2959,11 +2987,14 @@ def export_phase(torch, card, dev, tmp):
     seeded weights (``preds_agree``), its call time at bucket 32 beside the
     eager call's; then the end-to-end artifact under TEST.WARP=shear on
     (b, 640, 640, 3) canvases (shear warp and DARK once each per call),
-    held the same way against ``make_e2e_fn``. Returns the launch counts."""
+    held the same way against ``make_e2e_fn``; the ConvBN epilogue once
+    for each BatchNorm of every forward. Returns the launch counts
+    (DARK's, the shear warp's, the epilogue's)."""
     from rsgnet_tpu_torch import serve
     from rsgnet_tpu_torch.core.inference import (DevicePipeline,
                                                  make_e2e_fn,
                                                  make_inference_fn)
+    from rsgnet_tpu_torch.ops.cuda.convbn_epilogue import convbn_epilogue
     from rsgnet_tpu_torch.ops.cuda.dark_decode import dark_decode
     from rsgnet_tpu_torch.ops.cuda.shear_warp import shear_warp
     from rsgnet_tpu_torch.serving.http_server import predict_remote
@@ -3016,7 +3047,8 @@ def export_phase(torch, card, dev, tmp):
         except BaseException as e:          # re-raised below
             errors.append((i, e))
 
-    dark_decode.launches = shear_warp.launches = 0   # main path starts here
+    # main path starts here
+    dark_decode.launches = shear_warp.launches = convbn_epilogue.launches = 0
     batches_before = engine.stats()["batches"]
     try:
         threads = [threading.Thread(target=client, args=(i, r))
@@ -3025,7 +3057,8 @@ def export_phase(torch, card, dev, tmp):
             t.start()
         for t in threads:
             t.join(600)
-        served = (dark_decode.launches, shear_warp.launches)  # ends here
+        served = (dark_decode.launches, shear_warp.launches,
+                  convbn_epilogue.launches)               # ends here
         batches = engine.stats()["batches"] - batches_before
         stats = batcher.stats()
     finally:
@@ -3047,10 +3080,13 @@ def export_phase(torch, card, dev, tmp):
     log(f"served {len(reqs)} concurrent requests "
         f"({sum(r[0].shape[0] for r in reqs)} crops) from the artifact in "
         f"{batches} engine batches {stats['engine']['bucket_calls']}; "
-        f"dark_decode launches {served[0]}, shear_warp {served[1]}")
-    if served[0] < 1 or served != (batches, 0):
-        raise AssertionError(f"artifact server: launches {served} != "
+        f"dark_decode launches {served[0]}, shear_warp {served[1]}, ConvBN "
+        f"epilogue {served[2]}")
+    if served[0] < 1 or served[:2] != (batches, 0):
+        raise AssertionError(f"artifact server: launches {served[:2]} != "
                              f"({batches} engine batches, 0)")
+    passes = 2 if cfg.TEST.FLIP_TEST else 1
+    epilogue_launches_hold("artifact server", served[2], passes * batches)
 
     # -- the artifact in this process, against the eager function -----------
     fn = engine._fn
@@ -3107,17 +3143,20 @@ def export_phase(torch, card, dev, tmp):
         f"canvases) and load in {time.perf_counter() - t0:.1f} s")
     e2e = make_e2e_fn(ecfg, model, (CANVAS, CANVAS), device="cuda")
     epipe = DevicePipeline(ecfg, model, src_size=(CANVAS, CANVAS))
-    e2e_launches = [0, 0]
+    e2e_launches = [0, 0, 0]
     for n in (2, 8):
         req = (rng.randint(0, 256, (n, CANVAS, CANVAS, 3)).astype(np.uint8),
                rng.uniform(200, 440, (n, 2)).astype(np.float32),
                rng.uniform(0.8, 2.0, (n, 2)).astype(np.float32))
         dark_decode.launches = shear_warp.launches = 0
+        convbn_epilogue.launches = 0
         p1, v1 = efn(*req)
         torch.cuda.synchronize()
-        got = (dark_decode.launches, shear_warp.launches)
-        if got != (1, 1):
-            raise AssertionError(f"e2e artifact at {n}: launches {got}")
+        got = (dark_decode.launches, shear_warp.launches,
+               convbn_epilogue.launches)
+        if got[:2] != (1, 1):
+            raise AssertionError(f"e2e artifact at {n}: launches {got[:2]}")
+        epilogue_launches_hold(f"e2e artifact at {n}", got[2], passes)
         e2e_launches = [a + b for a, b in zip(e2e_launches, got)]
         with torch.inference_mode():
             pp, vp = epipe(*(torch.from_numpy(a).to(dev) for a in req))
@@ -3127,7 +3166,8 @@ def export_phase(torch, card, dev, tmp):
         rep = preds_agree(p1, v1, *e2e(*req), req[2],
                           ecfg.MODEL.HEATMAP_SIZE)
         log(f"e2e artifact at ({n}, {CANVAS}, {CANVAS}, 3): shear_warp and "
-            f"DARK launched once each; bitwise the unexported "
+            f"DARK launched once each, the ConvBN epilogue {got[2]} times; "
+            f"bitwise the unexported "
             f"DevicePipeline; vs make_e2e_fn: {rep}")
     del efn, e2e, epipe, model
     torch.cuda.empty_cache()
@@ -4003,8 +4043,177 @@ def card_line():
     return out[0].strip()
 
 
+# (C, H, W) of W48 @ 384x288's BatchNorms: the stem at 192x144, layer1,
+# then the four branches down to 12x9
+W48_BN_PLANES = [(64, 192, 144), (256, 96, 72), (48, 96, 72), (96, 48, 36),
+                 (192, 24, 18), (384, 12, 9)]
+W48_BATCHNORMS = 293     # eval BatchNorms of one W48 @ 384x288 forward
+
+
+def epilogue_vs_plain(torch, y, stats, addend, relu):
+    """The ConvBN epilogue kernel against its plain version: one launch,
+    and |kernel - plain| within 8 fp32 ulps of the magnitudes of the
+    terms, |y s|, |m s|, |b| and |addend| (s = w / sqrt(v + eps)): the
+    kernel rounds (y - m), its product with w * rsqrtf(v + eps) (rsqrtf 2
+    ulps), + b and + addend apart, cuDNN's inference BatchNorm in its own
+    order. Returns the largest error as a share of its bound."""
+    from rsgnet_tpu_torch.ops.cuda.convbn_epilogue import (
+        convbn_epilogue, convbn_epilogue_reference)
+    w, b, m, v = stats
+    before = convbn_epilogue.launches
+    got = convbn_epilogue(y, w, b, m, v, 1e-5, addend, relu)
+    want = convbn_epilogue_reference(y, w, b, m, v, 1e-5, addend, relu)
+    torch.cuda.synchronize()
+    if convbn_epilogue.launches != before + 1:
+        raise AssertionError("the epilogue did not count one launch")
+    s = w * torch.rsqrt(v + 1e-5)
+    mag = ((y.float() * s[:, None, None]).abs()
+           + (m * s).abs()[:, None, None] + b.abs()[:, None, None])
+    if addend is not None:
+        mag = mag + addend.abs()
+    # a NaN both give is no error; where every term is 0 (a zero y with
+    # zero mean and bias) the bound is 0, and so must the error be
+    err = torch.where(torch.isnan(got) & torch.isnan(want), 0.0,
+                      (got - want).abs())
+    bound = 8 * 2.0 ** -24 * mag
+    ratio = float(torch.where(bound > 0, err / bound,
+                              torch.where(err == 0, 0.0, torch.inf)).max())
+    if not ratio <= 1.0:
+        raise AssertionError(f"epilogue {tuple(y.shape)} {y.dtype}: "
+                             f"|kernel - plain| {ratio:.2f} x its bound")
+    return ratio
+
+
+def epilogue_bound_ms(y, addend):
+    """Least time of the epilogue on an H100: y read once, the addend
+    read once, the fp32 output written once, at 3.35 TB/s."""
+    nbytes = y.numel() * (y.element_size() + 4 + (4 if addend is not None
+                                                  else 0))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def epilogue_widths(torch, fn):
+    """The vector widths (elements a thread) of the epilogue kernels that
+    ``fn`` launches, in order: the second template argument of
+    ``convbn_epilogue_kernel`` in a trace's kernel names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted((e.time_range.start, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "convbn_epilogue_kernel" in e.name)
+    return [int(re.search(r"convbn_epilogue_kernel<[^,]+, *(?:\(int\))?"
+                          r"(\d+)", n).group(1)) for _, n in names]
+
+
+def epilogue_on_a_forward(torch, model, fn):
+    """Each eval BatchNorm that ``fn()`` runs in ``model``, held against
+    the plain version on its own input (``epilogue_vs_plain``). Returns
+    (BatchNorms held, the largest error as a share of its bound)."""
+    from rsgnet_tpu_torch.models.hrnet import BatchNorm
+    ratios = []
+
+    def hold(bn, args, kwargs):
+        ratios.append(epilogue_vs_plain(
+            torch, args[0], (bn.weight, bn.bias, bn.running_mean,
+                             bn.running_var),
+            kwargs.get("addend"), kwargs.get("relu", False)))
+
+    hooks = [m.register_forward_pre_hook(hold, with_kwargs=True)
+             for m in model.modules() if isinstance(m, BatchNorm)]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return len(ratios), max(ratios, default=0.0)
+
+
+def epilogue_launches_hold(label, got, forwards):
+    """The ConvBN epilogue launched once for each eval BatchNorm of the
+    ``forwards`` W48 forwards of a stretch of the main path."""
+    want = W48_BATCHNORMS * forwards
+    if got != want:
+        raise AssertionError(f"{label}: {got} ConvBN epilogue launches, "
+                             f"expected {want} ({W48_BATCHNORMS} a forward "
+                             f"x {forwards} forwards)")
+
+
+def epilogue_phase(torch, card, dev):
+    """Phase 34: the ConvBN epilogue kernel against its plain version at
+    W48's plane sizes, and its time at the largest beside its bound and
+    the plain chain's. Returns {label: (kernel ms, plain ms, bound ms)}."""
+    from rsgnet_tpu_torch.ops.cuda.build import library_path
+    from rsgnet_tpu_torch.ops.cuda.convbn_epilogue import (
+        convbn_epilogue, convbn_epilogue_reference)
+    from rsgnet_tpu_torch.tools._profiling import cuda_event_ms
+    ptxas = library_path("convbn_epilogue")
+    ptxas = ptxas.with_name(ptxas.stem[3:] + ".ptxas.txt")
+    lines = sorted({ln.split(":", 1)[-1].strip()
+                    for ln in ptxas.read_text().splitlines()
+                    if "registers" in ln or "spill" in ln})
+    log(f"ptxas, convbn_epilogue's instantiations: {lines}")
+    g = torch.Generator(device=dev).manual_seed(34)
+
+    def stats(c):
+        return (torch.randn(c, device=dev, generator=g),
+                0.5 * torch.randn(c, device=dev, generator=g),
+                0.5 * torch.randn(c, device=dev, generator=g),
+                torch.rand(c, device=dev, generator=g) * 2.0 + 0.05)
+
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for c, h, w in W48_BN_PLANES:
+            y = torch.randn((8, c, h, w), device=dev, generator=g).to(dtype)
+            r = torch.randn((8, c, h, w), device=dev, generator=g)
+            st = stats(c)
+            for addend, relu in ((None, False), (None, True), (r, True)):
+                worst = max(worst, epilogue_vs_plain(torch, y, st, addend,
+                                                     relu))
+            (width,) = epilogue_widths(
+                torch, lambda: convbn_epilogue(y, *st, 1e-5, r, True))
+            log(f"epilogue vs plain (8, {c}, {h}, {w}) {dtype}: within "
+                f"the bound alone, with ReLU, with residual and ReLU; "
+                f"{width} elements a thread (the trace's kernel name)")
+    for c, h, w in ((256, 32, 24), (256, 64, 48)):   # ViTPose's decoder
+        y = torch.randn((8, c, h, w), device=dev, generator=g).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        worst = max(worst, epilogue_vs_plain(torch, y, stats(c), None, True))
+        log(f"epilogue vs plain (8, {c}, {h}, {w}) bf16 channels-last with "
+            f"ReLU: within the bound")
+    log(f"epilogue vs plain: largest |kernel - plain| {worst:.3f} x its "
+        f"bound (8 fp32 ulps of the terms)")
+    times = {}
+    for label, (c, h, w), with_addend in (
+            ("stem, ReLU", (64, 192, 144), False),
+            ("layer1 block tail, residual and ReLU", (256, 96, 72), True)):
+        y = torch.randn((64, c, h, w), device=dev, generator=g).to(
+            torch.bfloat16)
+        r = (torch.randn((64, c, h, w), device=dev, generator=g)
+             if with_addend else None)
+        st = stats(c)
+        held = epilogue_vs_plain(torch, y, st, r, True)
+        log(f"epilogue vs plain (64, {c}, {h}, {w}) bf16, the timed "
+            f"tensors: {held:.3f} x the bound")
+        k_ms = cuda_event_ms(lambda: convbn_epilogue(y, *st, 1e-5, r, True))
+        p_ms = cuda_event_ms(
+            lambda: convbn_epilogue_reference(y, *st, 1e-5, r, True))
+        bound = epilogue_bound_ms(y, r)
+        times[label] = (k_ms, p_ms, bound)
+        log(f"[{card}] convbn_epilogue {label} (64, {c}, {h}, {w}) bf16: "
+            f"kernel {k_ms:.4f} ms, plain chain {p_ms:.4f} ms, bound "
+            f"{bound:.4f} ms (bytes); {100 * bound / k_ms:.1f}% of the "
+            f"bound, {p_ms / k_ms:.2f}x faster than the plain chain")
+        del y, r
+    torch.cuda.empty_cache()
+    return times
+
+
 def card_and_dark_phases(torch):
-    """Phases 1-2: the card, both kernels built, and the DARK kernel held
+    """Phases 1-2: the card, the kernels built, and the DARK kernel held
     against its plain version. Returns (the ``nvidia-smi`` card line,
     torch's device name, the device, the serving-shape heatmaps, DARK's
     max |coord diff| on them by blur)."""
@@ -4024,11 +4233,11 @@ def card_and_dark_phases(torch):
 
     # -- 2. kernel vs plain version ----------------------------------------
     t0 = time.perf_counter()
-    build_kernels(["dark_decode", "shear_warp"])   # one nvcc each, at once
-    log(f"built dark_decode.cu and shear_warp.cu in "
+    names = ["dark_decode", "shear_warp", "convbn_epilogue"]
+    build_kernels(names)                           # one nvcc each, at once
+    log(f"built {', '.join(n + '.cu' for n in names)} in "
         f"{time.perf_counter() - t0:.1f} s: "
-        f"{build.library_path('dark_decode').name}, "
-        f"{build.library_path('shear_warp').name}")
+        + ", ".join(build.library_path(n).name for n in names))
     ptxas = build.library_path("dark_decode").with_name(
         build.library_path("dark_decode").stem[3:] + ".ptxas.txt")
     entry, regs = None, None
@@ -4122,6 +4331,8 @@ def main():
     from rsgnet_tpu_torch.data.skeletons import get_spec
     from rsgnet_tpu_torch.models import get_pose_net, init_weights
     from rsgnet_tpu_torch.ops.cuda import build
+    from rsgnet_tpu_torch.models.hrnet import BatchNorm
+    from rsgnet_tpu_torch.ops.cuda.convbn_epilogue import convbn_epilogue
     from rsgnet_tpu_torch.ops.cuda.dark_decode import dark_decode
     from rsgnet_tpu_torch.ops.decode import dark_decode_reference
     from rsgnet_tpu_torch.ops.warp import normalize_image
@@ -4140,6 +4351,7 @@ def main():
     from rsgnet_tpu_torch.tools._profiling import cuda_event_ms
 
     card, kind, dev, hm64, err64 = card_and_dark_phases(torch)
+    epilogue_times = epilogue_phase(torch, card, dev)
 
     # -- 3. small-input reference: card vs CPU, fp32 tiny model ------------
     tcfg = tiny_rsgnet()
@@ -4210,7 +4422,12 @@ def main():
 
     jobs = [("predict", r) for r in crop_reqs] + \
            [("predict_image", b) for b in frame_boxes]
-    dark_decode.launches = shear_warp.launches = 0   # main path starts here
+    passes = 2 if cfg.TEST.FLIP_TEST else 1
+    n_bn = sum(isinstance(m, BatchNorm) for m in model.modules())
+    if n_bn != W48_BATCHNORMS:
+        raise AssertionError(f"W48 has {n_bn} BatchNorms")
+    # main path starts here
+    dark_decode.launches = shear_warp.launches = convbn_epilogue.launches = 0
     batches_before = engine.stats()["batches"]
     try:
         threads = [threading.Thread(target=client, args=(i, kd, pl))
@@ -4221,6 +4438,7 @@ def main():
             t.join(600)
         launches = dark_decode.launches          # main path ends here
         warp_on_serve = shear_warp.launches
+        serve_bn = convbn_epilogue.launches
         batches = engine.stats()["batches"] - batches_before
         stats = batcher.stats()
     finally:
@@ -4244,13 +4462,15 @@ def main():
         f"({sum(r[0].shape[0] for r in crop_reqs)} crops + "
         f"{sum(len(b) for b in frame_boxes)} boxes) in {batches} engine "
         f"batches {stats['engine']['bucket_calls']}; kernel launches "
-        f"{launches}; request latency ms: p50 {np.percentile(lat_ms, 50):.1f}"
+        f"{launches}, ConvBN epilogue {serve_bn}; request latency ms: p50 "
+        f"{np.percentile(lat_ms, 50):.1f}"
         f" max {lat_ms[-1]:.1f}; mean batch fill "
         f"{stats['mean_batch_fill']:.2f}")
     if launches < 1 or launches != batches or warp_on_serve != 0:
         raise AssertionError(f"kernel launches {launches} != engine batches "
                              f"{batches}, or the shear warp ran "
                              f"({warp_on_serve})")
+    epilogue_launches_hold("serving", serve_bn, passes * batches)
 
     # kernel vs plain on one served batch's heatmaps (8 crops, bucket 8)
     perm = torch.as_tensor(get_spec(cfg.DATASET.DATASET).flip_perm,
@@ -4263,9 +4483,16 @@ def main():
                                      dark_decode_reference, hm,
                                      cfg.TEST.BLUR_KERNEL)
         per_image = forward_flops(torch, model, x[:1])
+        bn_held, bn_worst = epilogue_on_a_forward(
+            torch, model, lambda: heatmaps_with_flip_test(model, x, cfg,
+                                                          perm))
     log(f"served batch heatmaps {tuple(hm.shape)}: kernel peaks and maxvals "
         f"equal the plain version's; max |coord diff| {served_err:.3e}")
-    passes = 2 if cfg.TEST.FLIP_TEST else 1
+    if bn_held != passes * W48_BATCHNORMS:
+        raise AssertionError(f"held {bn_held} BatchNorms of the served batch")
+    log(f"ConvBN epilogue vs plain on each of the served batch's "
+        f"{bn_held} BatchNorms (bucket 8, flip-test), on its own input: "
+        f"largest |kernel - plain| {bn_worst:.3f} x its bound")
     log(f"model forward: {per_image / 1e9:.2f} GFLOP per image (convs and "
         f"linears), {passes} passes per image")
 
@@ -4489,7 +4716,8 @@ def main():
         eval_out = eval_phases(torch, ecfg, eroot, card, dev, per_image)
     finally:
         shutil.rmtree(eroot, ignore_errors=True)
-    eval_dark, eval_shear = eval_out     # DARK: the validate() run's count
+    # DARK and the epilogue: the validate() run's counts
+    eval_dark, eval_shear, eval_bn = eval_out
 
     # -- 13-14. training through fit and the train CLI; the eval CLI -------
     froot = tempfile.mkdtemp(prefix="chip_smoke_fit_")
@@ -4612,6 +4840,25 @@ def main():
                    **resnet["warp"]},
         "bench_train": bench_warp,
     }]
+    stem_ms, stem_plain_ms, stem_bound = epilogue_times["stem, ReLU"]
+    kernels.append({
+        "name": "convbn_epilogue",
+        "route": "cuda",
+        "source": "rsgnet_tpu_torch/csrc/convbn_epilogue.cu",
+        "replaces": None,
+        "launches": serve_bn,
+        "launches_per_forward": W48_BATCHNORMS,
+        "eval_launches": eval_bn,
+        "export_launches": {"serve": export["serve"][2],
+                            "e2e": export["e2e"][2]},
+        "ms": stem_ms,
+        "plain_ms": stem_plain_ms,
+        "bound_ms": stem_bound,
+        "bound_by": "bytes",
+        "shape": [64, 64, 192, 144],
+        "timed": {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2]}
+                  for k, v in epilogue_times.items()},
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,10 @@ casts (no autocast):
   (eval, serving) the cast weights are cached, so a forward pays no weight
   cast;
 - ``BatchNorm`` in fp32, eps 1e-5: running statistics in eval mode; batch
-  statistics and the flax running update in train mode;
+  statistics and the flax running update in train mode. It also takes a
+  block's residual and the ReLU after it, so that in eval mode on a card
+  BatchNorm, residual and ReLU run as one kernel over the conv's output
+  (``ops/cuda/convbn_epilogue.py``);
 - residual sums, fusion sums and nearest upsampling in fp32;
 - ``final_layer``: a fp32 1x1 conv with bias on fp32 features.
 
@@ -59,6 +62,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from rsgnet_tpu_torch.config.defaults import Config, StageConfig
+from rsgnet_tpu_torch.ops.cuda.convbn_epilogue import (
+    convbn_epilogue, convbn_epilogue_reference)
 from rsgnet_tpu_torch.parallel.distributed import (all_reduce_sum,
                                                    is_distributed)
 
@@ -188,7 +193,15 @@ class BatchNorm(nn.Module):
     group), then (x - mean) * (rsqrt(var + eps) * weight) + bias; and it
     updates ``ra = 0.9 * ra + 0.1 * batch`` with that biased variance
     (``F.batch_norm`` would fold in the unbiased one), unless
-    ``update_stats`` is False (a rematerialized forward's recompute)."""
+    ``update_stats`` is False (a rematerialized forward's recompute).
+
+    ``addend`` (a block's fp32 residual) is added to the normalized values
+    and ``relu`` takes the ReLU last. In eval mode, off the CPU, the chain
+    is the ConvBN epilogue operator: on a card one launch of its kernel,
+    which raises for a tensor it does not take. On the CPU, in float64
+    (the exact model that precision checks compare against) and in train
+    mode the plain chain runs: fp32 at least (``at_least_f32``),
+    normalize, ``+ addend``, ReLU."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -207,14 +220,20 @@ class BatchNorm(nn.Module):
             self.running_var.copy_(BN_MOMENTUM * self.running_var
                                    + (1.0 - BN_MOMENTUM) * var)
 
-    def forward(self, x):
-        x = at_least_f32(x)
+    def forward(self, x, addend=None, relu=False):
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, BN_EPS)
+            args = (self.weight, self.bias, self.running_mean,
+                    self.running_var, BN_EPS, addend, relu)
+            if x.device.type == "cpu" or x.dtype == torch.float64:
+                return convbn_epilogue_reference(x, *args)
+            return convbn_epilogue(x, *args)
+        x = at_least_f32(x)
         mean, var = batch_stats(x)
         self.fold_running(mean, var)
-        return _normalize(x, mean, var, self.weight, self.bias)
+        x = _normalize(x, mean, var, self.weight, self.bias)
+        if addend is not None:
+            x = x + addend
+        return F.relu(x) if relu else x
 
 
 @contextlib.contextmanager
@@ -292,7 +311,9 @@ def space_to_depth_conv(x, conv: nn.Conv2d):
 class ConvBN(nn.Module):
     """Bias-free conv in the compute dtype -> fp32 BatchNorm -> optional
     ReLU. ``s2d``: the conv runs as ``space_to_depth_conv`` (odd kernels
-    of stride 2 only)."""
+    of stride 2 only). Called with ``residual`` (a block's last ConvBN),
+    it adds the residual after the BatchNorm and takes the ReLU after the
+    sum, whatever ``relu`` says: the block's tail, inside ``BatchNorm``."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  stride: int = 1, relu: bool = True,
@@ -308,10 +329,10 @@ class ConvBN(nn.Module):
         self.relu = relu
         self.s2d = s2d
 
-    def forward(self, x):
+    def forward(self, x, residual=None):
         y = space_to_depth_conv(x, self.conv) if self.s2d else self.conv(x)
-        x = self.bn(y)
-        return F.relu(x) if self.relu else x
+        return self.bn(y, addend=residual,
+                       relu=self.relu or residual is not None)
 
 
 class BasicBlock(nn.Module):
@@ -329,7 +350,7 @@ class BasicBlock(nn.Module):
 
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(self.cb2(self.cb1(x)) + residual)
+        return self.cb2(self.cb1(x), residual=residual)
 
 
 class Bottleneck(nn.Module):
@@ -349,7 +370,7 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(self.cb3(self.cb2(self.cb1(x))) + residual)
+        return self.cb3(self.cb2(self.cb1(x)), residual=residual)
 
 
 BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}

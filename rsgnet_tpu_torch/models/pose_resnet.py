@@ -63,7 +63,7 @@ class DeconvBN(nn.Module):
         self.bn = BatchNorm(features)
 
     def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+        return self.bn(self.conv(x), relu=True)
 
 
 class PoseResNet(nn.Module):
